@@ -5,17 +5,19 @@ C interface, loaded with ``ctypes`` (no PyTorch headers: the build takes
 seconds). The library lands in ``boundplanner_tpu_torch/_build/`` (listed
 in ``.gitignore``), named by a hash of the sources and flags, so a changed
 source rebuilds and an unchanged one is reused. Nothing is built at import:
-the first kernel launch calls :func:`library`.
+the first kernel launch calls :func:`library`. Building and loading hold a
+lock, so concurrent first launches from several threads (the planner's
+fleet builder) build and load the library once.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -61,10 +63,19 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libbp_kernels_{h.hexdigest()[:16]}.so")
 
 
+_LOCK = threading.RLock()
+_LIB = None
+
+
 def build() -> tuple[str, float]:
     """Compile the kernels if the library for these sources is missing.
     Returns (library path, seconds spent compiling; 0.0 when reused). The
     compiler's register/shared-memory report goes to ``<library>.log``."""
+    with _LOCK:
+        return _build_locked()
+
+
+def _build_locked() -> tuple[str, float]:
     out = library_path()
     if os.path.exists(out):
         return out, 0.0
@@ -82,16 +93,22 @@ def build() -> tuple[str, float]:
     return out, seconds
 
 
-@functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    path, _ = build()
-    lib = ctypes.CDLL(path)
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+    """The loaded kernel library (built and loaded once, on first call)."""
+    global _LIB
+    lib = _LIB
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if _LIB is None:
+            path, _ = build()
+            lib = ctypes.CDLL(path)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _LIB = lib
+        return _LIB
 
 
 def check(err: int, what: str) -> None:

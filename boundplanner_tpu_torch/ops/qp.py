@@ -1,6 +1,6 @@
 """Batched dense convex-QP solver: Mehrotra predictor-corrector IPM
-(port of ``solve_qp`` and ``solve_line_projection`` of
-``boundplanner_tpu/ops/qp.py``).
+(port of ``solve_qp``, ``solve_projection``, ``solve_line_projection`` and
+``solve_feasibility`` of ``boundplanner_tpu/ops/qp.py``).
 
 Problem form, one per row of the leading batch axis B::
 
@@ -223,6 +223,38 @@ def solve_qp(
     gap = torch.sum(s * z, dim=-1) / m
     success = (r_p < 1e-6) & (r_d < 1e-4)
     return QPSolution(x=x, z=z, s=s, r_p=r_p, r_d=r_d, gap=gap, success=success)
+
+
+def solve_projection(g_mat, h_vec, target, iters: int = 30):
+    """min |x - target|^2  s.t.  G x <= h, for a batch: g_mat (B, m, n),
+    h_vec (B, m), target (B, n)."""
+    n = target.shape[-1]
+    eye = torch.eye(n, dtype=target.dtype, device=target.device)
+    p_mat = (2.0 * eye).expand(target.shape[:-1] + (n, n))
+    return solve_qp(p_mat, -2.0 * target, g_mat, h_vec, iters=iters)
+
+
+def solve_feasibility(g_mat, h_vec, x0=None, iters: int = 30, eps: float = 1e-6):
+    """Phase-1: minimize the worst violation t of G x <= h + t, for a batch:
+    g_mat (B, m, n), h_vec (B, m), optional warm start x0 (B, n). Returns
+    (x (B, n), t (B,), sol): feasible iff t <~ 0.
+
+    The eps-regularization keeps the QP strongly convex; on rows that bound
+    neither x nor t, t drifts to -1/(2 eps). Planner callers pad with
+    inactive rows (0 x <= 10 + t clamps t >= -10) or carry workspace rows,
+    as the JAX package documents."""
+    bsz, m, n = g_mat.shape
+    dtype, dev = h_vec.dtype, h_vec.device
+    p_mat = (torch.eye(n + 1, dtype=dtype, device=dev) * eps).expand(bsz, n + 1, n + 1)
+    q_vec = torch.zeros((bsz, n + 1), dtype=dtype, device=dev)
+    q_vec[:, n] = 1.0
+    g_full = torch.cat([g_mat, -torch.ones((bsz, m, 1), dtype=dtype, device=dev)], dim=-1)
+    x0_full = None
+    if x0 is not None:
+        t0 = torch.amax(_mv(g_mat, x0) - h_vec, dim=-1) + 1.0
+        x0_full = torch.cat([x0, t0[:, None]], dim=-1)
+    sol = solve_qp(p_mat, q_vec, g_full, h_vec, x0=x0_full, iters=iters)
+    return sol.x[:, :n], sol.x[:, n], sol
 
 
 def solve_line_projection(g_mat, h_vec, p0, p1, iters: int = 30):

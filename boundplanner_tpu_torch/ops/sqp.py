@@ -1,5 +1,7 @@
 """Batched Gauss-Newton SQP over the dense QP-IPM
-(port of the structured branch of ``boundplanner_tpu/ops/sqp.py``).
+(port of ``boundplanner_tpu/ops/sqp.py``: the generic branch, whose
+Jacobian is forward-mode AD of the evaluation, and the structured branch
+of the MPC).
 
 Problem form per scene:  min |r(x)|^2  s.t.  g(x) <= 0. Fixed-trip
 iteration with per-scene ``done`` masks keeps the batch in lockstep (no
@@ -8,6 +10,7 @@ host sync inside the loop).
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, NamedTuple
 
 import torch
@@ -28,6 +31,38 @@ def _pick(t, idx):
     return t[torch.arange(t.shape[0], device=t.device), idx]
 
 
+# torch.func's forward-AD levels are process-global: two threads whose jvp
+# (or vmap) calls interleave corrupt each other's levels. The generic
+# branch, which planner threads run concurrently, evaluates under this lock.
+_TRANSFORMS = threading.RLock()
+
+
+def _locked(fn):
+    def run(*args):
+        with _TRANSFORMS:
+            return fn(*args)
+    return run
+
+
+def jac_fwd(eval_fn, x):
+    """Per-problem Jacobians of ``eval_fn`` at x (B, nx): one forward-mode
+    tangent per coordinate (``torch.func.jvp`` under ``torch.func.vmap``),
+    the batched form of ``jax.jacfwd``. Returns (J_r (B, mr, nx),
+    J_g (B, mg, nx))."""
+    bsz, n_x = x.shape
+
+    def flat(v):
+        r, g = eval_fn(v[:, None])
+        return r[:, 0], g[:, 0]
+
+    def column(t):
+        return torch.func.jvp(flat, (x,), (t,))[1]
+
+    eye = torch.eye(n_x, dtype=x.dtype, device=x.device)
+    jr, jg = torch.func.vmap(column)(eye[:, None, :].expand(n_x, bsz, n_x))
+    return jr.permute(1, 2, 0), jg.permute(1, 2, 0)
+
+
 def gauss_newton_sqp(
     eval_fn: Callable,
     x0: torch.Tensor,
@@ -43,17 +78,22 @@ def gauss_newton_sqp(
     qp_lowp_rd: bool = False,
 ) -> SQPResult:
     """``eval_fn``: x (B, L, nx) -> (r (B, L, mr), g (B, L, mg)), used for
-    the line search's L candidates per scene. ``eval_jac_fn``: x (B, nx) ->
-    (r, g, J_r, J_g_runtime) with the values of ``eval_fn``; the static
+    the line search's L candidates per scene.
+
+    Without ``eval_jac_fn`` (the generic branch) the Jacobians come from
+    forward-mode AD of ``eval_fn`` (:func:`jac_fwd`) and the QP is dense.
+    With it (the MPC's structured branch), ``eval_jac_fn``: x (B, nx) ->
+    (r, g, J_r, J_g_runtime) with the values of ``eval_fn``, and the static
     constraint tail of ``struct`` (`mpc.ocp_struct.OCPStruct`) is applied
-    structurally inside the QP. Only this structured form is ported."""
-    if eval_jac_fn is None or struct is None:
-        raise NotImplementedError("only the eval_jac_fn + struct SQP branch is ported")
+    structurally inside the QP."""
+    if (eval_jac_fn is None) != (struct is None):
+        raise NotImplementedError("eval_jac_fn and struct come together (structured branch)")
+    if struct is None:
+        eval_fn = _locked(eval_fn)
     dtype, dev = x0.dtype, x0.device
     bsz, n_x = x0.shape
     eye = torch.eye(n_x, dtype=dtype, device=dev)
     alphas = 2.0 ** -torch.arange(line_search_steps, dtype=dtype, device=dev)
-    m_run = struct.m_run
 
     def merit_of(r, g):
         return torch.sum(r * r, dim=-1) + merit_penalty * torch.sum(
@@ -69,12 +109,22 @@ def gauss_newton_sqp(
     used = torch.zeros(bsz, dtype=torch.int32, device=dev)
 
     for _ in range(iters):
-        r, g, jr, jg = eval_jac_fn(x)
-        grad = 2.0 * (jr.mT @ r[..., None])[..., 0]
-        hess = 2.0 * struct.gram_r(jr) + lam[:, None, None] * eye
-        qp = solve_qp(hess, grad, jg, -g[:, :m_run], iters=qp_iters, tol=1e-10,
-                      lowp=qp_lowp, struct=struct, h_tail=-g[:, m_run:],
-                      gondzio=qp_gondzio, lowp_rd=qp_lowp_rd)
+        if struct is None:
+            r, g = (t[:, 0] for t in eval_fn(x[:, None]))
+            with _TRANSFORMS:
+                jr, jg = jac_fwd(eval_fn, x)
+            grad = 2.0 * (jr.mT @ r[..., None])[..., 0]
+            hess = 2.0 * jr.mT @ jr + lam[:, None, None] * eye
+            qp = solve_qp(hess, grad, jg, -g, iters=qp_iters, tol=1e-10,
+                          lowp=qp_lowp, gondzio=qp_gondzio, lowp_rd=qp_lowp_rd)
+        else:
+            m_run = struct.m_run
+            r, g, jr, jg = eval_jac_fn(x)
+            grad = 2.0 * (jr.mT @ r[..., None])[..., 0]
+            hess = 2.0 * struct.gram_r(jr) + lam[:, None, None] * eye
+            qp = solve_qp(hess, grad, jg, -g[:, :m_run], iters=qp_iters, tol=1e-10,
+                          lowp=qp_lowp, struct=struct, h_tail=-g[:, m_run:],
+                          gondzio=qp_gondzio, lowp_rd=qp_lowp_rd)
         d = qp.x
 
         cand = x[:, None, :] + alphas[None, :, None] * d[:, None, :]

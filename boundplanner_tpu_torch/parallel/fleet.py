@@ -1,0 +1,183 @@
+"""Randomized-scene fleets: plan on the host over device kernels, stack,
+roll out batched (port of ``random_scene``, ``plan_scene``, ``build_fleet``
+and ``build_fleet_threaded`` of ``boundplanner_tpu/parallel/fleet.py``).
+
+Scenes differ in goal and obstacle layout. Each scene's planning (the
+irregular graph search) runs on the host, its numeric leaves as torch on
+the planner's device and dtype; the resulting carries and obstacle arrays
+(numpy leaves) stack into the batched trees that
+`parallel.batch.chunked_rollout` consumes after `utils.tree.to_torch`.
+
+The draw scheme is the JAX package's: draw ``d`` samples its scene from
+``np.random.default_rng(seed + 1000 * d)`` and plans with planner seed
+``seed + d``, so port-built and JAX-built fleets match scene by scene.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+from scipy.spatial.transform import Rotation as SciRotation
+
+from boundplanner_tpu.config import MPCParams
+from ..mpc.bound_mpc import init_carry
+from ..path.reference_path import build_path
+from ..planner.planner import BoundPlanner
+from ..planner.roadmap import PlanningError
+from ..planner.set_finder import build_obstacle_arrays
+from ..robot import kinematics as kin
+from ..utils.tree import to_numpy, tree_stack
+
+DEFAULT_ER_BOUND = np.array([90, 90, 90, -90, -90, -90]) * np.pi / 180
+# the demo start configuration (`boundplanner_tpu/demo.py`)
+DEMO_Q0 = np.array([0.0, 0.0, 0.0, -np.pi / 2, 0.0, np.pi / 2, 0.0])
+
+
+def random_scene(rng: np.random.Generator, n_obstacles: int = 3):
+    """A randomized tabletop scene: floor + boxes, random goal offset."""
+    obstacles = [[0.2, -1.0, -0.1, 1.0, 1.0, 0.0]]  # floor
+    for _ in range(n_obstacles):
+        c = rng.uniform([0.3, -0.6, 0.05], [0.7, 0.1, 0.5])
+        h = rng.uniform(0.03, 0.1, 3)
+        obstacles.append(list(np.concatenate([c - h, c + h])))
+    goal = rng.uniform([0.35, -0.55, 0.15], [0.6, -0.2, 0.6])
+    return obstacles, goal
+
+
+def plan_scene(q0, goal, obstacles, seed: int, cfg: MPCParams, dtype=np.float32,
+               broker=None, device="cpu", plan_dtype=torch.float32):
+    """Plan one scene; returns (carry, obstacle arrays) with numpy leaves in
+    ``dtype``, or None when the planner finds no path.
+
+    ``plan_dtype`` is the precision of the planning (the JAX package plans
+    in its global dtype: float32 without x64); ``dtype`` that of the carry
+    and obstacle arrays it builds."""
+    chain = kin.Chain().to(device, plan_dtype)
+    q = torch.as_tensor(np.asarray(q0, np.float64), dtype=plan_dtype, device=device)
+    pose0 = to_numpy(kin.fk_pose(q, chain))
+    p0 = pose0[:3]
+    r0 = SciRotation.from_rotvec(pose0[3:]).as_matrix()
+    r1 = SciRotation.from_euler("XYZ", [0, 90, 0], degrees=True).as_matrix()
+    planner = BoundPlanner(
+        e_p_max=0.5,
+        obstacles=obstacles,
+        workspace_max=[1.0, 0.38, 1.0],
+        workspace_min=[-0.14, -1.0, 0.0],
+        seed=seed,
+        broker=broker,
+        device=device,
+        dtype=plan_dtype,
+    )
+    try:
+        p_via, r_via, bp1_list, sets_via = planner.plan_convex_set_path(
+            p0.copy(), np.asarray(goal, float).copy(), r0, r1
+        )
+    except PlanningError:
+        return None
+    a_sets = [x[0] for x in sets_via]
+    b_sets = [x[1] for x in sets_via]
+    br1 = [np.array([0.0, 0.0, 1.0])] * len(bp1_list)
+    erb = [DEFAULT_ER_BOUND] * len(bp1_list)
+    path = build_path(
+        p_via, r_via, bp1_list, br1, erb, a_sets, b_sets,
+        nr_segs=cfg.nr_segs, dtype=dtype,
+    )
+    carry = init_carry(path, pose0.astype(dtype), cfg, dtype)
+    obs = build_obstacle_arrays(obstacles, dtype=dtype)
+    return carry, obs
+
+
+def _stack_fleet(planned, q0, batch, dtype):
+    carry_b = tree_stack([p[0] for p in planned])
+    obs_b = tree_stack([p[1] for p in planned])
+    q0_b = np.broadcast_to(q0.astype(dtype), (batch, 7)).copy()
+    return carry_b, q0_b, obs_b
+
+
+def build_fleet(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
+                seed: int = 0, dtype=np.float32, device="cpu",
+                plan_dtype=torch.float32):
+    """Plan ``batch`` randomized scenes one after another and stack them
+    (carries, q0s, obstacle arrays). Failed plans are re-drawn."""
+    rng = np.random.default_rng(seed)
+    q0 = DEMO_Q0.copy() if q0 is None else np.asarray(q0, float)
+    planned = []
+    draws = 0
+    while len(planned) < batch and draws < batch * 4:
+        draws += 1
+        obstacles, goal = random_scene(rng, n_obstacles)
+        out = plan_scene(q0, goal, obstacles, seed + draws, cfg, dtype,
+                         device=device, plan_dtype=plan_dtype)
+        if out is not None:
+            planned.append(out)
+    if len(planned) < batch:
+        raise RuntimeError(f"only {len(planned)}/{batch} scenes planned")
+    return _stack_fleet(planned, q0, batch, dtype)
+
+
+def build_fleet_sync(*args, **kwargs):
+    raise NotImplementedError(
+        "build_fleet_sync (phase-synchronous broker) is not ported; see ROADMAP.md")
+
+
+def build_fleet_mp(*args, **kwargs):
+    raise NotImplementedError(
+        "build_fleet_mp (process-pool planning for fleets >= 512) is not ported; "
+        "see ROADMAP.md")
+
+
+def build_fleet_threaded(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
+                         seed: int = 0, dtype=np.float32, n_threads: int = 8,
+                         linger: float = 0.030, device="cpu", plan_dtype=torch.float32):
+    """Like `build_fleet`, but plans scenes on a thread pool whose
+    device-kernel calls coalesce through a `broker.BatchBroker` into shared
+    batched executions. Scene ``draw`` = 1, 2, ... uses the rng seed
+    ``seed + 1000 * draw``; the first ``batch`` plans to succeed (in
+    completion order, so the kept draws depend on thread timing) are kept,
+    stacked in draw order. Returns (carry_b, q0_b, obs_b, broker): the
+    broker's counters expose how much batching was achieved."""
+    from .broker import BatchBroker, register_planner_kernels
+
+    q0 = DEMO_Q0.copy() if q0 is None else np.asarray(q0, float)
+    brk = BatchBroker(linger=linger, device=device, dtype=plan_dtype)
+    register_planner_kernels(brk, max_set_size=20)
+
+    results = {}
+    errors = []
+    lock = threading.Lock()
+    counter = {"draw": 0}
+
+    def worker():
+        try:
+            while True:
+                with lock:
+                    if (errors or len(results) >= batch
+                            or counter["draw"] >= batch * 4):
+                        return
+                    counter["draw"] += 1
+                    draw = counter["draw"]
+                rng_i = np.random.default_rng(seed + 1000 * draw)
+                obstacles, goal = random_scene(rng_i, n_obstacles)
+                out = plan_scene(q0, goal, obstacles, seed + draw, cfg, dtype,
+                                 broker=brk, device=device, plan_dtype=plan_dtype)
+                if out is not None:
+                    with lock:
+                        if len(results) < batch:
+                            results[draw] = out
+        except Exception as err:   # a device fault: stop every worker, re-raised below
+            with lock:
+                errors.append(err)
+
+    threads = [threading.Thread(target=worker) for _ in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    if len(results) < batch:
+        raise RuntimeError(f"only {len(results)}/{batch} scenes planned")
+    ordered = [results[k] for k in sorted(results)][:batch]
+    return (*_stack_fleet(ordered, q0, batch, dtype), brk)

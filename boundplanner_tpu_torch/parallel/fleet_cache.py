@@ -1,17 +1,24 @@
-"""Load the cached planner-built fleets without jax
-(port of ``load`` of ``boundplanner_tpu/parallel/fleet_cache.py``).
+"""Build, cache and load planner-built fleets without jax
+(port of ``cache_path``, ``build_and_save`` and ``load`` of
+``boundplanner_tpu/parallel/fleet_cache.py``).
 
-The pickles (``.fleet_cache/*.pkl``, schema ``fleet_cache_v1``) hold
-numpy-leaf NamedTuples of the JAX package; an ``Unpickler`` maps those
-three classes onto this package's NamedTuples of the same field order.
-``to_torch`` carries the fleet (carry, start configurations, obstacles)
-onto a device and dtype; ``to_numpy`` brings any result tree back.
-Unpickle only cache files this repository's tools wrote.
+A cache file (schema ``fleet_cache_v1``) is a pickle of the stacked fleet:
+numpy-leaf NamedTuples (carry, obstacle arrays), the start configurations
+and the broker's counters. Files written by the JAX package hold its
+classes; files written here hold this package's classes of the same field
+order. An ``Unpickler`` maps both onto this package's NamedTuples.
+``to_torch`` carries the fleet onto a device and dtype; ``to_numpy``
+brings any result tree back. Unpickle only cache files this repository's
+tools wrote.
+
+CLI:  python -m boundplanner_tpu_torch.parallel.fleet_cache B SEED out.pkl [--device cuda]
 """
 
 from __future__ import annotations
 
+import os
 import pickle
+import sys
 
 import numpy as np
 import torch
@@ -19,13 +26,15 @@ import torch
 from ..mpc.bound_mpc import MPCCarry
 from ..path.reference_path import PathState
 from ..planner.set_finder import ObstacleArrays
+from ..utils.tree import to_numpy, to_torch, tree_map  # noqa: F401  (re-exported)
 
 SCHEMA = "fleet_cache_v1"
 
 _CLASSES = {
-    ("boundplanner_tpu.mpc.bound_mpc", "MPCCarry"): MPCCarry,
-    ("boundplanner_tpu.path.reference_path", "PathState"): PathState,
-    ("boundplanner_tpu.planner.set_finder", "ObstacleArrays"): ObstacleArrays,
+    (f"{pkg}.{mod}", cls.__name__): cls
+    for pkg in ("boundplanner_tpu", "boundplanner_tpu_torch")
+    for mod, cls in (("mpc.bound_mpc", MPCCarry), ("path.reference_path", PathState),
+                     ("planner.set_finder", ObstacleArrays))
 }
 
 
@@ -38,6 +47,49 @@ class _Unpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
+def cache_path(batch: int, seed: int, nr_segs: int, root: str | None = None) -> str:
+    root = root or os.path.join(os.path.dirname(__file__), "..", "..", ".fleet_cache")
+    return os.path.abspath(
+        os.path.join(root, f"fleet_b{batch}_s{seed}_segs{nr_segs}.pkl")
+    )
+
+
+def build_and_save(batch: int, seed: int, path: str, n_threads: int = 8,
+                   dtype=np.float32, device="cpu", plan_dtype=torch.float32):
+    """Plan the fleet with the broker-coalesced thread builder
+    (`fleet.build_fleet_threaded`) on ``device`` in ``plan_dtype`` and
+    pickle it. Fleets of 512 scenes or more (the JAX package's process-pool
+    builder) are not ported."""
+    from boundplanner_tpu.config import perf_mpc_params
+    from .fleet import build_fleet_mp, build_fleet_threaded
+
+    cfg = perf_mpc_params()
+    if batch >= 512:
+        build_fleet_mp(batch, cfg, seed=seed, dtype=dtype)
+    carry_b, q0_b, obs_b, brk = build_fleet_threaded(
+        batch, cfg, seed=seed, dtype=dtype, n_threads=n_threads,
+        device=device, plan_dtype=plan_dtype,
+    )
+    payload = {
+        "schema": SCHEMA,
+        "batch": batch,
+        "seed": seed,
+        "nr_segs": cfg.nr_segs,
+        "carry": carry_b,
+        "q0": q0_b,
+        "obs": obs_b,
+        "broker_stats": {
+            "calls_served": brk.calls_served,
+            "batches_run": brk.batches_run,
+            "coalesced_calls": brk.coalesced_calls,
+        },
+    }
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+    return payload
+
+
 def load(path: str):
     with open(path, "rb") as f:
         payload = _Unpickler(f).load()
@@ -46,39 +98,23 @@ def load(path: str):
     return payload
 
 
-def tree_map(fn, tree):
-    """Map over the leaves of nested NamedTuples/tuples/lists/dicts."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, v) for v in tree))
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
-def to_torch(tree, device="cpu", dtype=torch.float32):
-    """numpy leaves -> tensors on ``device``: floating leaves in ``dtype``,
-    integer and bool leaves keep their type."""
-    def conv(a):
-        a = np.asarray(a)
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if t.is_floating_point():
-            t = t.to(dtype)
-        return t.to(device)
-
-    return tree_map(conv, tree)
-
-
-def to_numpy(tree):
-    """tensor leaves -> numpy arrays."""
-    return tree_map(
-        lambda t: t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t),
-        tree,
-    )
-
-
 def load_fleet(path: str, device="cpu", dtype=torch.float32):
     """(carry, q0, obs) of a cached fleet as tensors."""
     payload = load(path)
     return to_torch((payload["carry"], payload["q0"], payload["obs"]), device, dtype)
+
+
+def main(argv):
+    args = list(argv)
+    device = "cpu"
+    if "--device" in args:
+        i = args.index("--device")
+        device = args[i + 1]
+        del args[i : i + 2]
+    b, s, out = int(args[0]), int(args[1]), args[2]
+    payload = build_and_save(b, s, out, device=device)
+    print(f"fleet cache: {b} scenes -> {out} (broker: {payload['broker_stats']})")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -12,12 +12,25 @@ Phases (each asserts; any failure exits non-zero):
 2. kernel A (Cholesky + inverse) against its plain PyTorch version on the
    card, at the fleet's shapes (128, 136, 136) and (1, 136, 136);
 3. kernel B (segment-polytope projection) against its plain version at
-   P = 12288 and P = 1, R = 15, with zero-padded rows and inactive
-   obstacles;
+   the tick's shapes, P = 12288 and P = 1, R = 15, with zero-padded rows
+   and inactive obstacles, and at the planner's, P = 16 and P = 1024 (one
+   and 64 coalesced `find_set_line` calls on fleet draws);
 4. a small f64 rollout on the card against the same rollout on the CPU;
 5. the main path: the cached 128-scene fleet, ``FleetMPC(perf_mpc_params())``
    -> ``chunked_rollout`` for 20 ticks in f32 (warm-up, then timed), with
-   the kernels' launch counts, fleet quality and single-scene tick latency.
+   the kernels' launch counts, fleet quality and single-scene tick latency;
+6. kernel A against its plain version at the planner's shapes, f32:
+   batch 64 at n = 3, 4, 8, 12, 16, 20, 24, and (1, 3, 3), (1024, 3, 3),
+   (1280, 4, 4);
+7. the planner in f64: one fleet draw (seed 7, draw 1) planned by
+   ``parallel.fleet.plan_scene`` on the CPU and on the card, same carry;
+8. the planner path: ``parallel.fleet.build_fleet_threaded`` plans a
+   fleet in f32 on the card through the broker (seed 7, 3 obstacles, 8
+   threads, the settings that built the cached fleet), with its rate, the
+   draws it kept, the broker's counters, both kernels' launches, the
+   corridor invariants of every scene, and how its scenes compare with the
+   cached JAX-built ones;
+9. the planned fleet rolled out for 20 ticks through the MPC on the card.
 
 Earlier lines print JSON with the numbers; the line before the last is the
 kernels' summary, the last line ``{"ok": true, "device": {...}}``. No JAX
@@ -35,6 +48,22 @@ FLEET = os.path.join(".fleet_cache", "fleet_b128_s7_segs4.pkl")
 N_TICKS = 20
 CHUNK = 128
 LATENCY_REPS = 50
+PLAN_SEED = 7          # the seed of the cached fleet
+# 8 of the cached fleet's 128 scenes: one plan takes ~20 s on the card and
+# the host-bound planner threads share one interpreter, so 8 scenes take
+# ~250 s and 16 would take ~500 s (PERF.md). The widths are the JAX
+# package's own.
+PLAN_SCENES = 8
+PLAN_OBSTACLES = 3
+PLAN_OBS_INFLATE = 0.08           # BoundPlanner's default obs_size_increase
+PLAN_WS_MIN = (-0.14, -1.0, 0.0)  # the fleet's workspace (`plan_scene`)
+PLAN_WS_MAX = (1.0, 0.38, 1.0)
+# kernel A's planner shapes (batch, n): n = 3 projection QPs (one call, or
+# `_polyhedron_once`'s 16 per call x 64 coalesced), n = 4 feasibility and
+# line projection (`fit_ee_in_set`: 20 per call x 64), n = 4 nr_via for the
+# via-rotation SQP, nr_via = 1 .. 6
+PLANNER_CHOL_SHAPES = ([(64, n) for n in (3, 4, 8, 12, 16, 20, 24)]
+                       + [(1, 3), (1024, 3), (1280, 4)])
 
 
 def emit(obj):
@@ -127,14 +156,42 @@ def projection_batch(rng, count, rows=15, n_active=4, n_obs=16):
     return f(a), f(b), f(p0), f(p1)
 
 
+def planner_projection_batch(rng, calls):
+    """Problems shaped like the planner's `find_set_line` batch: per
+    coalesced call the 16 obstacle slots of fleet draw 1 + call % 8 (floor
+    and 3 boxes inflated as the planner does, 12 inactive slots at b = 10),
+    all b shifted by -0.001, and one segment inside the fleet's workspace."""
+    import numpy as np
+    from boundplanner_tpu_torch.parallel.fleet import random_scene
+    from boundplanner_tpu_torch.planner.set_finder import build_obstacle_arrays
+
+    a, b, p0, p1 = [], [], [], []
+    for call in range(calls):
+        draw = 1 + call % 8
+        obstacles, _ = random_scene(np.random.default_rng(PLAN_SEED + 1000 * draw),
+                                    PLAN_OBSTACLES)
+        arr = build_obstacle_arrays(obstacles, PLAN_OBS_INFLATE)
+        s0, s1 = rng.uniform(PLAN_WS_MIN, PLAN_WS_MAX, (2, 3))
+        a.append(arr.a)
+        b.append(arr.b - 0.001)
+        p0.append(np.tile(s0, (len(arr.b), 1)))
+        p1.append(np.tile(s1, (len(arr.b), 1)))
+    f = lambda x: np.ascontiguousarray(np.concatenate(x), dtype=np.float32)
+    return f(a), f(b), f(p0), f(p1)
+
+
 def phase_kernel_b(rng, dev):
+    """Kernel B at the tick's shapes (fold "tick") and the planner's (fold
+    "planner", P = 16 per coalesced call)."""
     import torch
     from boundplanner_tpu_torch.ops.cuda_proj import (
         line_polytope_projection, line_polytope_projection_plain)
 
     out = {}
-    for count in (12288, 1):
-        args = [torch.from_numpy(x).to(dev) for x in projection_batch(rng, count)]
+    for fold, count in (("tick", 12288), ("tick", 1), ("planner", 16), ("planner", 1024)):
+        batch = (projection_batch(rng, count) if fold == "tick"
+                 else planner_projection_batch(rng, count // 16))
+        args = [torch.from_numpy(x).to(dev) for x in batch]
         xk, phik, dk = line_polytope_projection(*args)
         xp, phip, dp = line_polytope_projection_plain(*args)
         torch.cuda.synchronize()
@@ -144,13 +201,13 @@ def phase_kernel_b(rng, dev):
                   (dk - dp).abs().amax().item())
         ms = cuda_ms(lambda: line_polytope_projection(*args), 50)
         plain_ms = cuda_ms(lambda: line_polytope_projection_plain(*args), 5)
-        row = {"phase": "kernel_b", "problems": count, "rows": 15,
+        row = {"phase": "kernel_b", "fold": fold, "problems": count, "rows": 15,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
         emit(row)
         # same f32 arithmetic up to FMA contraction in the kernel's sums
-        assert err < 1e-4, f"kernel B disagrees with plain: {err}"
-        out[count] = row
-    return out[12288]
+        assert err < 1e-4, f"kernel B disagrees with plain ({fold}, P={count}): {err}"
+        out[fold, count] = row
+    return out["tick", 12288], [out["planner", 16], out["planner", 1024]]
 
 
 def phase_small_f64(payload, cfg, dev):
@@ -252,6 +309,212 @@ def phase_main(payload, cfg, dev):
     return result
 
 
+def phase_kernel_a_planner(rng, dev):
+    """Kernel A at the planner's QP sizes and batches (PLANNER_CHOL_SHAPES),
+    f32, with the bars of `phase_kernel_a`."""
+    import torch
+    from boundplanner_tpu_torch.ops.linalg import kkt_inverse, kkt_inverse_plain
+
+    rows = []
+    for bsz, n in PLANNER_CHOL_SHAPES:
+        k = torch.from_numpy(spd_batch(rng, bsz, n=n, m=48)).to(dev)
+        li = kkt_inverse(k)
+        lp = kkt_inverse_plain(k)
+        torch.cuda.synchronize()
+        assert torch.isfinite(li).all(), "kernel A: non-finite output"
+        assert (torch.triu(li, diagonal=1) == 0).all(), "kernel A: upper triangle not 0"
+        eye = torch.eye(n, device=dev)
+        res_k = (li @ k @ li.mT - eye).abs().amax().item()
+        res_p = (lp @ k @ lp.mT - eye).abs().amax().item()
+        abs_err = (li - lp).abs().amax().item()
+        rel_err = abs_err / lp.abs().amax().item()
+        row = {"phase": "kernel_a_planner", "shape": list(k.shape), "max_abs_err": abs_err,
+               "max_rel_err": rel_err, "resid_inf_kernel": res_k, "resid_inf_plain": res_p,
+               "upper_zero": True, "ms": cuda_ms(lambda: kkt_inverse(k), 50),
+               "plain_ms": cuda_ms(lambda: kkt_inverse_plain(k), 5)}
+        emit(row)
+        assert rel_err < 1e-3, f"kernel A disagrees with plain at {(bsz, n, n)}: {rel_err}"
+        assert res_k <= max(4.0 * res_p, 1e-3), f"kernel A residual {res_k} vs {res_p}"
+        rows.append(row)
+    return rows
+
+
+def plan_draw(draw, cfg, device, plan_dtype, dtype, broker=None):
+    """`plan_scene` of fleet draw ``draw`` (the draw scheme of the cached
+    fleet: rng seed PLAN_SEED + 1000 draw, planner seed PLAN_SEED + draw)."""
+    import numpy as np
+    from boundplanner_tpu_torch.parallel.fleet import DEMO_Q0, plan_scene, random_scene
+
+    obstacles, goal = random_scene(np.random.default_rng(PLAN_SEED + 1000 * draw),
+                                   PLAN_OBSTACLES)
+    return plan_scene(DEMO_Q0, goal, obstacles, PLAN_SEED + draw, cfg, dtype,
+                      broker=broker, device=device, plan_dtype=plan_dtype)
+
+
+def phase_planner_f64(cfg, dev):
+    """Fleet draw 1 planned in f64 on the CPU and on the card (exact
+    projection IPM, kernel A in f64): the same via count, and vias, sets
+    and every carry leaf within 1e-9."""
+    import numpy as np
+    import torch
+    from boundplanner_tpu_torch.utils.tree import tree_map
+
+    out, secs = {}, {}
+    for where in ("cpu", dev):
+        t0 = time.perf_counter()
+        planned = plan_draw(1, cfg, where, torch.float64, np.float64)
+        secs[str(where)] = time.perf_counter() - t0
+        assert planned is not None, f"draw 1 failed to plan on {where}"
+        out[str(where)] = planned[0]
+    a, b = out["cpu"], out[str(dev)]
+    errs = []
+    tree_map(lambda x, y: errs.append(float(np.max(np.abs(np.asarray(x, float)
+                                                          - np.asarray(y, float))))), a, b)
+    err = max(errs)
+    n_via = int(a.path.num_sectors) + 2
+    row = {"phase": "planner_f64_cpu_vs_card", "vias_cpu": n_via,
+           "vias_card": int(b.path.num_sectors) + 2,
+           "max_abs_err_vias": float(np.abs(a.path.p - b.path.p).max()),
+           "max_abs_err_sets": float(max(np.abs(a.path.a_set - b.path.a_set).max(),
+                                         np.abs(a.path.b_set - b.path.b_set).max())),
+           "max_abs_err_carry": err, "seconds_cpu": secs["cpu"], "seconds_card": secs[str(dev)]}
+    emit(row)
+    assert row["vias_cpu"] == row["vias_card"], row
+    assert err <= 1e-9, f"f64 plan on the card disagrees with the CPU: {err}"
+
+
+def corridor_ok(carry, obs, i):
+    """The invariants of tests/test_planner.py for scene i: both ends of
+    every segment inside its set (2e-3), and 25 samples of every segment
+    outside every original obstacle."""
+    import numpy as np
+
+    path = carry.path
+    n_via = int(path.num_sectors[i]) + 2
+    p = np.asarray(path.p[i, :n_via], np.float64)
+    for s in range(n_via - 1):
+        a, b = np.asarray(path.a_set[i, s], np.float64), np.asarray(path.b_set[i, s], np.float64)
+        if max(np.max(a @ p[s] - b), np.max(a @ p[s + 1] - b)) >= 2e-3:
+            return False
+        for t in np.linspace(0.0, 1.0, 25):
+            x = (1 - t) * p[s] + t * p[s + 1]
+            for o in np.nonzero(obs.mask[i])[0]:
+                a_o = np.asarray(obs.a[i, o, :6], np.float64)
+                b_o = np.asarray(obs.b[i, o, :6], np.float64)
+                if np.max(a_o @ x - b_o) <= -1e-6:
+                    return False
+    return True
+
+
+def kept_draws(obs):
+    """The fleet draw of each planned scene, found by regenerating draws
+    1 .. 4 * scenes (the builder's limit) and matching obstacle arrays."""
+    import numpy as np
+    from boundplanner_tpu_torch.parallel.fleet import random_scene
+    from boundplanner_tpu_torch.planner.set_finder import build_obstacle_arrays
+
+    n = obs.b.shape[0]
+    drawn = [build_obstacle_arrays(random_scene(np.random.default_rng(PLAN_SEED + 1000 * d),
+                                                PLAN_OBSTACLES)[0], dtype=obs.b.dtype).b
+             for d in range(1, 4 * n + 1)]
+    return [next((d + 1 for d, b in enumerate(drawn) if np.array_equal(b, obs.b[i])), None)
+            for i in range(n)]
+
+
+def compare_with_cache(carry, obs, payload):
+    """Each planned scene against the cached JAX-built scene whose obstacle
+    arrays are bit-equal (the same draw): same segment count, via-point
+    distance where the count agrees. Reported, not asserted."""
+    import numpy as np
+
+    c_obs, c_path = payload["obs"], payload["carry"].path
+    same, dists, matched = 0, [], 0
+    for i in range(obs.a.shape[0]):
+        hits = [j for j in range(c_obs.a.shape[0])
+                if np.array_equal(c_obs.a[j], obs.a[i]) and np.array_equal(c_obs.b[j], obs.b[i])]
+        if not hits:
+            continue
+        j = hits[0]
+        matched += 1
+        if int(c_path.num_sectors[j]) == int(carry.path.num_sectors[i]):
+            same += 1
+            n_via = int(c_path.num_sectors[j]) + 2
+            dists.append(float(np.max(np.linalg.norm(
+                np.asarray(c_path.p[j, :n_via], np.float64)
+                - np.asarray(carry.path.p[i, :n_via], np.float64), axis=-1))))
+    return {"matched_scenes": matched,
+            "same_segment_count_share": same / matched if matched else None,
+            "via_dist_median": float(np.median(dists)) if dists else None,
+            "via_dist_max": float(np.max(dists)) if dists else None}
+
+
+def phase_plan_fleet(cfg, dev, payload):
+    """The planner path on the card: one plan first (its time), then the
+    threaded, broker-coalesced fleet builder in f32."""
+    import numpy as np
+    import torch
+    from boundplanner_tpu_torch.ops.cuda_proj import line_polytope_projection
+    from boundplanner_tpu_torch.ops.linalg import kkt_inverse
+    from boundplanner_tpu_torch.parallel.fleet import build_fleet_threaded
+
+    t0 = time.perf_counter()
+    one = plan_draw(1, cfg, dev, torch.float32, np.float32)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    emit({"phase": "plan_one", "seconds": one_s, "planned": one is not None})
+
+    kkt_inverse.launches = 0
+    line_polytope_projection.launches = 0
+    t0 = time.perf_counter()
+    carry, q0, obs, brk = build_fleet_threaded(
+        PLAN_SCENES, cfg, seed=PLAN_SEED, n_obstacles=PLAN_OBSTACLES, dtype=np.float32,
+        n_threads=8, linger=0.030, device=dev, plan_dtype=torch.float32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"chol_inverse": kkt_inverse.launches,
+                "line_polytope": line_polytope_projection.launches}
+    sound = [corridor_ok(carry, obs, i) for i in range(PLAN_SCENES)]
+    draws = kept_draws(obs)
+    row = {"phase": "plan_fleet", "scenes": PLAN_SCENES, "wall_s": wall,
+           "plans_per_s": PLAN_SCENES / wall, "one_plan_s": one_s,
+           "kept_draws": draws, "draws": max(d or 0 for d in draws),
+           "broker": {"calls_served": brk.calls_served, "batches_run": brk.batches_run,
+                      "coalesced_calls": brk.coalesced_calls},
+           "launches": launches, "corridors_sound": sum(sound),
+           "segments": [int(n) + 1 for n in carry.path.num_sectors],
+           **compare_with_cache(carry, obs, payload)}
+    emit(row)
+    assert launches["chol_inverse"] > 0 and launches["line_polytope"] > 0, launches
+    assert all(sound), f"corridor invariants fail for scenes {[i for i, ok in enumerate(sound) if not ok]}"
+    return (carry, q0, obs), row
+
+
+def phase_planned_rollout(fleet, cfg, dev):
+    """The planned fleet through the MPC for N_TICKS ticks on the card."""
+    import torch
+    from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
+    from boundplanner_tpu_torch.parallel.batch import chunked_rollout
+    from boundplanner_tpu_torch.parallel.fleet_cache import to_torch
+
+    carry, q0, obs = to_torch(fleet, dev, torch.float32)
+    batch = q0.shape[0]
+    model = FleetMPC(cfg).to(dev, torch.float32)
+    t0 = time.perf_counter()
+    _, recs = chunked_rollout(carry, q0, obs, model, N_TICKS, chunk=batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for k, v in recs.items():
+        assert v.shape[:2] == (batch, N_TICKS), (k, v.shape)
+        assert torch.isfinite(v.float()).all(), f"non-finite record {k}"
+    row = {"phase": "planned_rollout", "scenes": batch, "ticks": N_TICKS, "wall_s": wall,
+           "success_rate": float(recs["success"].float().mean()),
+           "max_viol": float(recs["viol"].amax()),
+           "mean_phi_final": float(recs["phi"][:, -1].mean())}
+    emit(row)
+    assert row["success_rate"] >= 0.90, f"planned fleet success_rate {row['success_rate']} < 0.90"
+    return row
+
+
 def main(argv):
     out_dir = None
     if "--out" in argv:
@@ -292,28 +555,39 @@ def main(argv):
 
     rng = np.random.default_rng(0)
     a = phase_kernel_a(rng, dev)
-    b = phase_kernel_b(rng, dev)
+    b, b_plan = phase_kernel_b(rng, dev)
     cfg = perf_mpc_params()
     payload = load(FLEET)
     phase_small_f64(payload, cfg, dev)
     main_res = phase_main(payload, cfg, dev)
+    a_plan = phase_kernel_a_planner(rng, dev)
+    phase_planner_f64(cfg, dev)
+    fleet, plan = phase_plan_fleet(cfg, dev, payload)
+    rollout = phase_planned_rollout(fleet, cfg, dev)
 
     kernels = {"kernels": [
         {"name": "chol_inverse", "route": "cuda",
          "source": "boundplanner_tpu_torch/csrc/chol_inverse.cu",
          "replaces": "boundplanner_tpu/ops/pallas_chol.py:386",
          "launches": main_res["launches"]["chol_inverse"],
-         "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"]},
+         "launches_plan_fleet": plan["launches"]["chol_inverse"],
+         "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
+         "planner_shapes": [{k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms")}
+                            for r in a_plan]},
         {"name": "line_polytope", "route": "cuda",
          "source": "boundplanner_tpu_torch/csrc/line_polytope.cu",
          "replaces": "boundplanner_tpu/ops/pallas_proj.py:95",
          "launches": main_res["launches"]["line_polytope"],
-         "max_abs_err": b["max_abs_err"], "ms": b["ms"], "plain_ms": b["plain_ms"]},
+         "launches_plan_fleet": plan["launches"]["line_polytope"],
+         "max_abs_err": b["max_abs_err"], "ms": b["ms"], "plain_ms": b["plain_ms"],
+         "planner_shapes": [{k: r[k] for k in ("problems", "max_abs_err", "ms", "plain_ms")}
+                            for r in b_plan]},
     ]}
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-            json.dump({"card": card, "main": main_res, **kernels}, f, indent=1)
+            json.dump({"card": card, "main": main_res, "plan_fleet": plan,
+                       "planned_rollout": rollout, **kernels}, f, indent=1)
         with open(path + ".log") as src, open(os.path.join(out_dir, "nvcc.log"), "w") as dst:
             dst.write(src.read())
     print(card, flush=True)

@@ -14,11 +14,14 @@ absolute (FMA contraction in the kernel's dot products; Dykstra contracts,
 so the differences stay at a few ulps of the O(1) coordinates).
 """
 
+import os
+import threading
+
 import numpy as np
 import pytest
 import torch
 
-from boundplanner_tpu_torch.ops import cuda_proj
+from boundplanner_tpu_torch.ops import _build, cuda_proj
 from boundplanner_tpu_torch.ops.linalg import kkt_inverse, kkt_inverse_plain
 
 
@@ -49,6 +52,26 @@ def tick_batch(rng, scenes=2, links=6, n_obs=16, n_active=4):
     return a, b - 0.001, p0, p1
 
 
+def planner_batch(rng, calls):
+    """The planner's `find_set_line` fold: per coalesced call the 16
+    obstacle slots of fleet draw 1 + call % 8 (seed 7: floor and 3 boxes
+    inflated by the planner's 0.08, 12 inactive slots), all b shifted by
+    -0.001, and one segment inside the fleet's workspace."""
+    from boundplanner_tpu_torch.parallel.fleet import random_scene
+    from boundplanner_tpu_torch.planner.set_finder import build_obstacle_arrays
+
+    a, b, p0, p1 = [], [], [], []
+    for call in range(calls):
+        obstacles, _ = random_scene(np.random.default_rng(7 + 1000 * (1 + call % 8)), 3)
+        arr = build_obstacle_arrays(obstacles, 0.08)
+        s0, s1 = rng.uniform((-0.14, -1.0, 0.0), (1.0, 0.38, 1.0), (2, 3))
+        a.append(arr.a)
+        b.append(arr.b - 0.001)
+        p0.append(np.tile(s0, (len(arr.b), 1)))
+        p1.append(np.tile(s1, (len(arr.b), 1)))
+    return tuple(np.concatenate(x) for x in (a, b, p0, p1))
+
+
 @pytest.fixture
 def cuda_device():
     """The card, or a skip: these tests compare a CUDA kernel with its
@@ -74,9 +97,71 @@ def test_cuda_chol_inverse_matches_plain(cuda_device, bsz, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("count", [12288, 1])
-def test_cuda_line_polytope_matches_plain(cuda_device, count):
-    a, b, p0, p1 = tick_batch(np.random.default_rng(count), scenes=128, links=6)
+@pytest.mark.parametrize("bsz,n", [(64, n) for n in (3, 4, 8, 12, 16, 20, 24)]
+                         + [(1, 3), (1024, 3), (1280, 4)])
+def test_cuda_chol_inverse_planner_shapes(cuda_device, bsz, n):
+    """Kernel A at the planner's QP sizes and batches, f32: projection 3
+    (alone, or 16 per call x 64 coalesced calls), feasibility and line
+    projection 4 (the EE fit: 20 per call x 64), the via-rotation SQP
+    4 nr_via up to 24."""
+    ks = torch.from_numpy(spd(np.random.default_rng(n), bsz, n)).to(cuda_device, torch.float32)
+    got = kkt_inverse(ks)
+    ref = kkt_inverse_plain(ks)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
+    assert (torch.triu(got, 1) == 0).all()
+    eye = torch.eye(n, device=cuda_device)
+    res_k = (got @ ks @ got.mT - eye).abs().max().item()
+    res_p = (ref @ ks @ ref.mT - eye).abs().max().item()
+    assert res_k <= max(4.0 * res_p, 1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_concurrent_first_launch_builds_once(cuda_device, tmp_path, monkeypatch):
+    """8 threads make their first kkt_inverse call at once, from an empty
+    build directory: nvcc runs once, the library loads once, and every
+    thread's result is right."""
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_LIB", None)
+    nvcc_calls = []
+    real_nvcc = _build._nvcc
+    monkeypatch.setattr(_build, "_nvcc", lambda: nvcc_calls.append(1) or real_nvcc())
+    ks = torch.from_numpy(spd(np.random.default_rng(5), 4, 16)).to(cuda_device, torch.float32)
+    barrier = threading.Barrier(8)
+    out, errors = [None] * 8, []
+
+    def first_launch(i):
+        try:
+            barrier.wait()
+            out[i] = kkt_inverse(ks)
+        except BaseException as err:  # reported below
+            errors.append(err)
+
+    threads = [threading.Thread(target=first_launch, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    assert len(nvcc_calls) == 1
+    lib = os.path.basename(_build.library_path())
+    assert sorted(os.listdir(tmp_path)) == [lib, lib + ".log"]
+    ref = kkt_inverse_plain(ks)
+    for got in out:
+        assert (got - ref).abs().max().item() <= 2e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold,count", [("tick", 12288), ("tick", 1),
+                                        ("planner", 16), ("planner", 1024)])
+def test_cuda_line_polytope_matches_plain(cuda_device, fold, count):
+    """The tick's fold (scenes x links x obstacles) and the planner's
+    (16 obstacle slots per coalesced `find_set_line` call)."""
+    if fold == "tick":
+        a, b, p0, p1 = tick_batch(np.random.default_rng(count), scenes=128, links=6)
+    else:
+        a, b, p0, p1 = planner_batch(np.random.default_rng(count), count // 16)
     args = [torch.from_numpy(np.ascontiguousarray(x[:count], dtype=np.float32)).to(cuda_device)
             for x in (a, b, p0, p1)]
     before = cuda_proj.line_polytope_projection.launches

@@ -1,12 +1,15 @@
 """The port stands apart from JAX: no module of ``boundplanner_tpu_torch``
-and not ``chip_smoke.py`` imports jax, and the only module of the JAX
-package they import is the numpy-only ``boundplanner_tpu.config``. Also
+and not ``chip_smoke.py`` imports jax, and the only modules of the JAX
+package they import are the jax-free ``boundplanner_tpu.config`` and
+``boundplanner_tpu.native_geom`` (the ctypes geometry core). Every port
+module imports with jax blocked. Also
 ``chip_smoke.py``'s refusal contract: without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero and prints no
 result on its standard output.
 """
 
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -17,6 +20,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "boundplanner_tpu_torch")
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
+JAX_FREE = ("boundplanner_tpu.config", "boundplanner_tpu.native_geom")
 
 
 def port_sources():
@@ -49,7 +53,47 @@ def test_no_jax_and_only_config_from_jax_package(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib"), f"{path} imports {mod}"
         if top == "boundplanner_tpu":
-            assert mod == "boundplanner_tpu.config", f"{path} imports {mod}"
+            assert mod in JAX_FREE, f"{path} imports {mod}"
+
+
+def port_modules():
+    mods = []
+    for path in port_sources():
+        rel = os.path.relpath(path, ROOT)
+        if rel == "chip_smoke.py":
+            continue
+        mod = rel[:-3].replace(os.sep, ".")
+        mods.append(mod[: -len(".__init__")] if mod.endswith(".__init__") else mod)
+    return mods
+
+
+@pytest.fixture(scope="module")
+def imported_with_jax_blocked():
+    """Import every port module in a fresh interpreter whose import system
+    refuses jax and jaxlib; returns {module: error or None}."""
+    code = (
+        "import importlib, importlib.abc, json, sys\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib'):\n"
+        "            raise ImportError('jax is blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "out = {}\n"
+        f"for m in {port_modules()!r}:\n"
+        "    try:\n"
+        "        importlib.import_module(m); out[m] = None\n"
+        "    except Exception as err:\n"
+        "        out[m] = repr(err)\n"
+        "print(json.dumps(out))\n"
+    )
+    proc = run_python(["-c", code], ROOT)
+    assert proc.returncode == 0, proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", port_modules())
+def test_port_module_imports_with_jax_blocked(imported_with_jax_blocked, module):
+    assert imported_with_jax_blocked[module] is None, imported_with_jax_blocked[module]
 
 
 def run_python(args, cwd):
@@ -60,7 +104,8 @@ def run_python(args, cwd):
 
 def test_importing_the_slice_loads_no_jax():
     code = ("import sys; import boundplanner_tpu_torch.parallel.batch, "
-            "boundplanner_tpu_torch.parallel.fleet_cache; "
+            "boundplanner_tpu_torch.parallel.fleet_cache, "
+            "boundplanner_tpu_torch.parallel.fleet, boundplanner_tpu_torch.parallel.broker; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')))")
     proc = run_python(["-c", code], ROOT)
     assert proc.returncode == 0, proc.stderr

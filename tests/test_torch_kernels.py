@@ -26,7 +26,7 @@ from boundplanner_tpu.ops.pallas_chol import cholesky_inverse
 from boundplanner_tpu.ops import pallas_proj
 from boundplanner_tpu_torch.ops import cuda_proj
 from boundplanner_tpu_torch.ops.linalg import kkt_inverse, kkt_inverse_plain
-from test_torch_cuda import spd, tick_batch
+from test_torch_cuda import planner_batch, spd, tick_batch
 
 torch.set_num_threads(1)
 
@@ -109,6 +109,7 @@ CASES = {
     "pallas_test_batch": lambda: make_batch(np.random.default_rng(0)),
     "inside_segment": inside_case,
     "tick_fold": lambda: tick_batch(np.random.default_rng(3)),
+    "planner_fold": lambda: planner_batch(np.random.default_rng(5), 2),
 }
 
 
