@@ -2,8 +2,10 @@
 
 Module paths and function names mirror the JAX package so each function's
 counterpart is easy to find. The JAX package stays the reference; this
-package imports ``torch`` and, of the JAX package, only the numpy-only
-``boundplanner_tpu.config``.
+package imports ``torch`` and nothing of JAX or of the JAX package: it
+keeps its own copies of what it needs (``config``, ``native_geom``).
+Its entry points run on the card unless the caller passes
+``device="cpu"``.
 
 The two Pallas TPU kernels of the main path are hand-written CUDA kernels
 for Hopper (``csrc/``), built with ``nvcc`` at first use and loaded with

@@ -10,8 +10,9 @@ horizon telemetry -> rotation-reference integration -> segment switching
 with via-point snap correction -> carry update. Everything is batch-major
 (leading scene axis B) with fixed trip counts: no host sync inside.
 
-``FleetMPC(cfg)`` holds the tick's static tensors (`ocp_struct.OCPStruct`)
-as buffers; ``.to(device, dtype)`` moves them.
+``FleetMPC(cfg, device=, dtype=)`` holds the tick's static tensors
+(`ocp_struct.OCPStruct`) as buffers on the card in float32 unless asked
+otherwise; ``.to(device, dtype)`` moves them.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 from torch import nn
 from torch.func import vmap
 
-from boundplanner_tpu.config import MPCParams
+from ..config import MPCParams
 from ..path import ref_fns
 from ..path.reference_path import (
     PathState,
@@ -35,6 +36,7 @@ from ..path.reference_path import (
 from ..planner.set_finder import ObstacleArrays
 from ..robot.model import U_MAX
 from ..utils import so3
+from ..utils.device import DEFAULT_DEVICE, checked_device
 from . import ocp, ocp_struct, prep
 from .solver import check_supported, solve_sqp
 
@@ -444,15 +446,19 @@ def mpc_tick(carry: MPCCarry, meas: dict, obs: ObstacleArrays, cfg: MPCParams, s
 class FleetMPC(nn.Module):
     """The fused MPC tick with its static structure as buffers.
 
-    ``FleetMPC(cfg).to(device, dtype)`` then ``model.tick(carry, meas, obs)``
+    ``FleetMPC(cfg, device=, dtype=)`` then ``model.tick(carry, meas, obs)``
     (or ``model(...)``) runs one control period for a batch of scenes. The
-    buffers start in float64; move them to the fleet's dtype."""
+    factory keywords work as those of ``torch.nn`` layers, with the card
+    and float32 as defaults: the structure is built in float64 and then
+    cast to ``dtype`` on ``device`` (the fleet's)."""
 
-    def __init__(self, cfg: MPCParams):
+    def __init__(self, cfg: MPCParams, device=DEFAULT_DEVICE, dtype=torch.float32):
         super().__init__()
         check_supported(cfg)
+        device = checked_device(device)
         self.cfg = cfg
         self.st = ocp_struct.build(cfg.n, cfg.dt, cfg.robot, cfg.struct_chunked)
+        self.to(device, dtype)
 
     @torch.no_grad()
     def tick(self, carry: MPCCarry, meas: dict, obs: ObstacleArrays):

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
-from boundplanner_tpu.config import MPCParams, MPC_SET_ROWS, NUM_LINK_SETS
+from ..config import MPCParams, MPC_SET_ROWS, NUM_LINK_SETS
 from ..robot import kinematics as kin
 from ..path import ref_fns
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from boundplanner_tpu.config import MPC_SET_ROWS, NUM_LINK_SETS
+from ..config import MPC_SET_ROWS, NUM_LINK_SETS
 from ..robot.kinematics import Chain
 from ..robot.model import DDQ_LIM, U_MAX, U_MIN, ocp_limits
 from . import ocp

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from boundplanner_tpu.config import NUM_LINK_SETS
+from ..config import NUM_LINK_SETS
 from ..robot import kinematics as kin
 from ..utils import so3
 from ..planner.set_finder import ObstacleArrays, find_set_line

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from torch.func import vmap
 
-from boundplanner_tpu.config import MPCParams
+from ..config import MPCParams
 from ..ops.sqp import SQPResult, gauss_newton_sqp
 from . import ocp, ocp_jac
 

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, loaded with ``ctypes`` (no PyTorch headers: the build takes
-seconds). The library lands in ``boundplanner_tpu_torch/_build/`` (listed
-in ``.gitignore``), named by a hash of the sources and flags, so a changed
-source rebuilds and an unchanged one is reused. Nothing is built at import:
+``nvcc`` compiles every ``csrc/*.cu`` (one ``nvcc`` per source, all
+started together) and links the objects into one shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers: the build
+takes seconds). The library lands in ``boundplanner_tpu_torch/_build/``
+(listed in ``.gitignore``), named by a hash of the sources and flags, so a
+changed source rebuilds and an unchanged one is reused. Nothing is built at import:
 the first kernel launch calls :func:`library`. Building and loading hold a
 lock, so concurrent first launches from several threads (the planner's
 fleet builder) build and load the library once.
@@ -17,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -25,8 +27,9 @@ SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,7 +59,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + f.read())
@@ -80,15 +83,28 @@ def _build_locked() -> tuple[str, float]:
     if os.path.exists(out):
         return out, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *[s for s in _sources() if s.endswith(".cu")]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR, prefix=".obj-") as obj_dir:
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o",
+                 os.path.join(obj_dir, os.path.basename(src) + ".o"), src]
+                for src in _sources() if src.endswith(".cu")]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in cmds]
+        outputs = [proc.communicate() for proc in procs]
+        steps = [(cmd, proc.returncode, o + e) for cmd, proc, (o, e) in zip(cmds, procs, outputs)]
+        if all(rc == 0 for _, rc, _ in steps):
+            link = [nvcc, *LINK_FLAGS, "-o", tmp, *(cmd[-2] for cmd in cmds)]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            steps.append((link, proc.returncode, proc.stdout + proc.stderr))
     seconds = time.perf_counter() - t0
     with open(out + ".log", "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        f.writelines(" ".join(cmd) + "\n" + text for cmd, _, text in steps)
+    failed = [(cmd, rc, text) for cmd, rc, text in steps if rc != 0]
+    if failed:
+        cmd, rc, text = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{text}")
     os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
     return out, seconds
 

@@ -21,6 +21,7 @@ from typing import Any, Callable, Dict, List
 import numpy as np
 import torch
 
+from ..utils.device import DEFAULT_DEVICE, checked_device
 from ..utils.tree import to_numpy, to_torch, tree_map, tree_stack
 
 
@@ -63,13 +64,13 @@ class BatchBroker:
     """
 
     def __init__(self, linger: float = 0.003, max_batch: int = 64,
-                 device="cpu", dtype=torch.float32):
+                 device=DEFAULT_DEVICE, dtype=torch.float32):
         # short default linger: every leader sleeps the full window, so
         # low-concurrency callers should not pay a coalescing budget; the
         # fleet builder passes linger=0.030
         self.linger = linger
         self.max_batch = max_batch
-        self.device = torch.device(device)
+        self.device = checked_device(device)
         self.dtype = dtype
         self._lock = threading.Lock()
         self._pending: Dict[str, List[_Ticket]] = {}

@@ -21,13 +21,14 @@ import numpy as np
 import torch
 from scipy.spatial.transform import Rotation as SciRotation
 
-from boundplanner_tpu.config import MPCParams
+from ..config import MPCParams
 from ..mpc.bound_mpc import init_carry
 from ..path.reference_path import build_path
 from ..planner.planner import BoundPlanner
 from ..planner.roadmap import PlanningError
 from ..planner.set_finder import build_obstacle_arrays
 from ..robot import kinematics as kin
+from ..utils.device import DEFAULT_DEVICE, checked_device
 from ..utils.tree import to_numpy, tree_stack
 
 DEFAULT_ER_BOUND = np.array([90, 90, 90, -90, -90, -90]) * np.pi / 180
@@ -47,13 +48,14 @@ def random_scene(rng: np.random.Generator, n_obstacles: int = 3):
 
 
 def plan_scene(q0, goal, obstacles, seed: int, cfg: MPCParams, dtype=np.float32,
-               broker=None, device="cpu", plan_dtype=torch.float32):
+               broker=None, device=DEFAULT_DEVICE, plan_dtype=torch.float32):
     """Plan one scene; returns (carry, obstacle arrays) with numpy leaves in
     ``dtype``, or None when the planner finds no path.
 
     ``plan_dtype`` is the precision of the planning (the JAX package plans
     in its global dtype: float32 without x64); ``dtype`` that of the carry
     and obstacle arrays it builds."""
+    device = checked_device(device)
     chain = kin.Chain().to(device, plan_dtype)
     q = torch.as_tensor(np.asarray(q0, np.float64), dtype=plan_dtype, device=device)
     pose0 = to_numpy(kin.fk_pose(q, chain))
@@ -97,10 +99,11 @@ def _stack_fleet(planned, q0, batch, dtype):
 
 
 def build_fleet(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
-                seed: int = 0, dtype=np.float32, device="cpu",
+                seed: int = 0, dtype=np.float32, device=DEFAULT_DEVICE,
                 plan_dtype=torch.float32):
     """Plan ``batch`` randomized scenes one after another and stack them
     (carries, q0s, obstacle arrays). Failed plans are re-drawn."""
+    device = checked_device(device)
     rng = np.random.default_rng(seed)
     q0 = DEMO_Q0.copy() if q0 is None else np.asarray(q0, float)
     planned = []
@@ -130,7 +133,8 @@ def build_fleet_mp(*args, **kwargs):
 
 def build_fleet_threaded(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
                          seed: int = 0, dtype=np.float32, n_threads: int = 8,
-                         linger: float = 0.030, device="cpu", plan_dtype=torch.float32):
+                         linger: float = 0.030, device=DEFAULT_DEVICE,
+                         plan_dtype=torch.float32):
     """Like `build_fleet`, but plans scenes on a thread pool whose
     device-kernel calls coalesce through a `broker.BatchBroker` into shared
     batched executions. Scene ``draw`` = 1, 2, ... uses the rng seed

@@ -11,7 +11,9 @@ order. An ``Unpickler`` maps both onto this package's NamedTuples.
 brings any result tree back. Unpickle only cache files this repository's
 tools wrote.
 
-CLI:  python -m boundplanner_tpu_torch.parallel.fleet_cache B SEED out.pkl [--device cuda]
+CLI:  python -m boundplanner_tpu_torch.parallel.fleet_cache B SEED out.pkl [--device cpu]
+
+(the card by default; a run without one exits at once with an error)
 """
 
 from __future__ import annotations
@@ -23,9 +25,11 @@ import sys
 import numpy as np
 import torch
 
+from ..config import perf_mpc_params
 from ..mpc.bound_mpc import MPCCarry
 from ..path.reference_path import PathState
 from ..planner.set_finder import ObstacleArrays
+from ..utils.device import DEFAULT_DEVICE, checked_device
 from ..utils.tree import to_numpy, to_torch, tree_map  # noqa: F401  (re-exported)
 
 SCHEMA = "fleet_cache_v1"
@@ -55,14 +59,14 @@ def cache_path(batch: int, seed: int, nr_segs: int, root: str | None = None) -> 
 
 
 def build_and_save(batch: int, seed: int, path: str, n_threads: int = 8,
-                   dtype=np.float32, device="cpu", plan_dtype=torch.float32):
+                   dtype=np.float32, device=DEFAULT_DEVICE, plan_dtype=torch.float32):
     """Plan the fleet with the broker-coalesced thread builder
     (`fleet.build_fleet_threaded`) on ``device`` in ``plan_dtype`` and
     pickle it. Fleets of 512 scenes or more (the JAX package's process-pool
     builder) are not ported."""
-    from boundplanner_tpu.config import perf_mpc_params
     from .fleet import build_fleet_mp, build_fleet_threaded
 
+    device = checked_device(device)
     cfg = perf_mpc_params()
     if batch >= 512:
         build_fleet_mp(batch, cfg, seed=seed, dtype=dtype)
@@ -98,15 +102,16 @@ def load(path: str):
     return payload
 
 
-def load_fleet(path: str, device="cpu", dtype=torch.float32):
-    """(carry, q0, obs) of a cached fleet as tensors."""
+def load_fleet(path: str, device=DEFAULT_DEVICE, dtype=torch.float32):
+    """(carry, q0, obs) of a cached fleet as tensors on ``device``."""
+    device = checked_device(device)
     payload = load(path)
     return to_torch((payload["carry"], payload["q0"], payload["obs"]), device, dtype)
 
 
 def main(argv):
     args = list(argv)
-    device = "cpu"
+    device = DEFAULT_DEVICE
     if "--device" in args:
         i = args.index("--device")
         device = args[i + 1]

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from scipy.spatial.transform import Rotation as SciRotation
 
-from boundplanner_tpu.config import MPC_SET_ROWS
+from ..config import MPC_SET_ROWS
 
 MAX_VIAS = 16  # fixed via-point capacity (actual plans use ~2-8)
 

@@ -43,9 +43,10 @@ import numpy as np
 import torch
 from scipy.spatial.transform import Rotation as SciRotation
 
-from boundplanner_tpu.config import PlannerParams, MPC_SET_ROWS
+from ..config import PlannerParams, MPC_SET_ROWS
 from ..ops.mvie import mvie
 from ..ops.qp import solve_feasibility, solve_projection
+from ..utils.device import DEFAULT_DEVICE, checked_device
 from ..utils.sets import make_box, box_vertices, normalize_set_size, reduce_ineqs
 from ..utils.tree import to_numpy, to_torch, tree_map
 from .roadmap import Junction, PlanningError, SafeSet, SetRoadmap
@@ -118,7 +119,7 @@ class BoundPlanner:
         seed: Optional[int] = None,
         verbose: bool = False,
         broker=None,
-        device="cpu",
+        device=DEFAULT_DEVICE,
         dtype=torch.float32,
     ):
         # optional `parallel.broker.BatchBroker`: when set, the device-kernel
@@ -127,7 +128,7 @@ class BoundPlanner:
         self.broker = broker
         # where and in which precision the numeric leaves run: float32
         # mirrors the JAX package with x64 off, float64 with x64 on
-        self.device = torch.device(device)
+        self.device = checked_device(device)
         self.dtype = dtype
         self.params = PlannerParams(
             e_p_max=e_p_max,

@@ -1,0 +1,23 @@
+"""The device check of the port's entry points.
+
+The entry points run on the card unless the caller asks for the CPU
+(``device="cpu"``). A call that names a CUDA device on a machine without
+one raises at once, naming the device: nothing falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+DEFAULT_DEVICE = "cuda"
+
+
+def checked_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises ``RuntimeError`` if it is a
+    CUDA device and no CUDA device is available."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} was requested but no CUDA device is available; "
+            "pass device='cpu' to run on the CPU")
+    return dev

@@ -1,13 +1,12 @@
 """Half-space set helpers (host-side numpy; fixed-shape padding for device).
-A copy of ``boundplanner_tpu/utils/sets.py``, whose package import would
-load jax; the native geometry core is the JAX package's jax-free
-``boundplanner_tpu.native_geom``.
+A copy of ``boundplanner_tpu/utils/sets.py``; the native geometry core
+is the port's own binding, ``boundplanner_tpu_torch.native_geom``.
 
 Replaces the cddlib-backed helpers of the reference
 (`bound_planner/utils/util_functions.py:66-133`). For the axis-aligned box
 obstacles the engine actually uses, vertex enumeration is closed form (the
 8 corners); general H-rep vertex enumeration / redundancy removal lives in
-the native geometry core (``boundplanner_tpu.native_geom``) with a numpy
+the native geometry core (``native_geom``) with a numpy
 fallback here.
 """
 
@@ -16,6 +15,8 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+from .. import native_geom
 
 PAD_B_VALUE = 10.0  # inactive-row right-hand side, matches `util_functions.py:122`
 
@@ -65,8 +66,6 @@ def polytope_vertices(a_set: np.ndarray, b_set: np.ndarray, tol: float = 1e-9) -
     of active planes (numpy fallback for the native geometry core; replaces
     pycddlib, ref `util_functions.py:66-79`). O(m^3) with m <= ~25."""
     try:
-        import boundplanner_tpu.native_geom as native_geom
-
         if native_geom.available():
             return native_geom.polytope_vertices(a_set, b_set, tol)
     except Exception:
@@ -95,8 +94,6 @@ def reduce_ineqs(a_set: np.ndarray, b_set: np.ndarray) -> Tuple[np.ndarray, np.n
     cdd ``matrix_redundancy_remove``). A row is kept iff it is active
     (within tol) at some vertex of the polytope."""
     try:
-        import boundplanner_tpu.native_geom as native_geom
-
         if native_geom.available():
             return native_geom.reduce_ineqs(a_set, b_set)
     except Exception:

@@ -24,9 +24,10 @@ def tree_stack(trees):
     return tree_map(lambda *xs: np.stack([np.asarray(x) for x in xs]), *trees)
 
 
-def to_torch(tree, device="cpu", dtype=torch.float32):
-    """numpy leaves -> tensors on ``device``: floating leaves in ``dtype``,
-    integer and bool leaves keep their type."""
+def to_torch(tree, device, dtype=torch.float32):
+    """numpy leaves -> tensors on ``device`` (no default: the caller names
+    it): floating leaves in ``dtype``, integer and bool leaves keep their
+    type."""
     def conv(a):
         a = np.asarray(a)
         t = torch.from_numpy(np.ascontiguousarray(a))

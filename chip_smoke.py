@@ -8,9 +8,12 @@ Run from the repository root on a machine with one NVIDIA GPU (H100):
 Phases (each asserts; any failure exits non-zero):
 
 1. the card's name and power limit (nvidia-smi); build both CUDA kernels
-   from ``boundplanner_tpu_torch/csrc`` with nvcc;
+   from ``boundplanner_tpu_torch/csrc`` with nvcc (one per source, in
+   parallel);
 2. kernel A (Cholesky + inverse) against its plain PyTorch version on the
-   card, at the fleet's shapes (128, 136, 136) and (1, 136, 136);
+   card, at the fleet's shapes (128, 136, 136) and (1, 136, 136) in f32 and
+   (2, 136, 136) in f64, and on batches of non-PD matrices at n = 136 in
+   f32 and f64 (the same finite flag per matrix as the plain version);
 3. kernel B (segment-polytope projection) against its plain version at
    the tick's shapes, P = 12288 and P = 1, R = 15, with zero-padded rows
    and inactive obstacles, and at the planner's, P = 16 and P = 1024 (one
@@ -19,6 +22,8 @@ Phases (each asserts; any failure exits non-zero):
 5. the main path: the cached 128-scene fleet, ``FleetMPC(perf_mpc_params())``
    -> ``chunked_rollout`` for 20 ticks in f32 (warm-up, then timed), with
    the kernels' launch counts, fleet quality and single-scene tick latency;
+   then the same fleet's quality with kernel A's route swapped (kernel A
+   again, its plain version, kernel A in f64);
 6. kernel A against its plain version at the planner's shapes, f32:
    batch 64 at n = 3, 4, 8, 12, 16, 20, 24, and (1, 3, 3), (1024, 3, 3),
    (1280, 4, 4);
@@ -31,6 +36,18 @@ Phases (each asserts; any failure exits non-zero):
    corridor invariants of every scene, and how its scenes compare with the
    cached JAX-built ones;
 9. the planned fleet rolled out for 20 ticks through the MPC on the card.
+
+Every kernel row gives the kernel's time (CUDA events), its plain
+version's, its bound (the larger of the bytes it must move over 3.35 TB/s
+and its operations over the card's peak for their type, 67 TFLOP/s f32 or
+34 TFLOP/s f64 outside the tensor cores, which it names as ``bound_by``),
+the roofline share (bound over time), and ``library_ms``: for kernel A the
+two library calls ``torch.linalg.cholesky_ex`` then
+``torch.linalg.solve_triangular(L, I, upper=False)`` at the same shape
+(timed here only; the port never calls them), for kernel B null (no
+PyTorch call computes a segment-polytope closest pair). Kernel A's rows
+also give ``launch_only_ms``: its library entry launched straight into a
+preallocated output, the kernel's time without the wrapper's host work.
 
 Earlier lines print JSON with the numbers; the line before the last is the
 kernels' summary, the last line ``{"ok": true, "device": {...}}``. No JAX
@@ -64,6 +81,14 @@ PLAN_WS_MAX = (1.0, 0.38, 1.0)
 # via-rotation SQP, nr_via = 1 .. 6
 PLANNER_CHOL_SHAPES = ([(64, n) for n in (3, 4, 8, 12, 16, 20, 24)]
                        + [(1, 3), (1024, 3), (1280, 4)])
+# the card's published peaks (H100 SXM, dense, at a 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}   # outside the tensor cores
+# kernel B's operations per problem (csrc/line_polytope.cu): 17 per row
+# correction (w = y + e, a.w - b, / |a|^2, clamp, e = t a, y = w - e), 11
+# per segment parameter and 6 per segment point, 6 per row and 9 for the
+# setup, 16 for the final distance
+B_OPS_ROW, B_OPS_PHI, B_OPS_POINT, B_OPS_SETUP_ROW, B_OPS_SETUP, B_OPS_DIST = 17, 11, 6, 6, 9, 16
 
 
 def emit(obj):
@@ -86,7 +111,7 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def spd_batch(rng, bsz, n=136, m=400):
+def spd_batch(rng, bsz, n=136, m=400, dtype="float32"):
     """SPD matrices shaped like the IPM's KKT: G^T diag(w) G + P, with the
     interior-point weights w = z/s spread over four decades."""
     import numpy as np
@@ -94,41 +119,122 @@ def spd_batch(rng, bsz, n=136, m=400):
     g = rng.normal(size=(bsz, m, n)) / np.sqrt(m)
     w = 10.0 ** rng.uniform(-2.0, 2.0, size=(bsz, m))
     k = np.einsum("bmi,bm,bmj->bij", g, w, g) + 1e-2 * np.eye(n)
-    return k.astype(np.float32)
+    return k.astype(dtype)
+
+
+def non_pd_batch(rng, n):
+    """Six matrices that are not positive definite: 0 and 3 indefinite with
+    off-diagonal mass (the clamped pivots overflow), 1 one negative pivot,
+    2 all zero (every pivot clamped), 4 a NaN on the diagonal, 5
+    rank-deficient PSD. Matrices 1, 2 and 5 stay finite."""
+    import numpy as np
+
+    def spd(count, size):
+        a = rng.normal(size=(count, size, size))
+        return a @ a.transpose(0, 2, 1) + size * np.eye(size)
+
+    ks = spd(6, n) - 2.5 * n * np.eye(n)
+    ks[1] = np.diag(np.r_[1.0, -1.0, np.ones(n - 2)])
+    ks[2] = 0.0
+    ks[4] = np.eye(n)
+    ks[4][3, 3] = np.nan
+    ks[5] = 0.0
+    ks[5][:8, :8] = spd(1, 8)[0]
+    return ks
+
+
+NON_PD_FINITE = [False, True, True, False, False, True]
+
+
+def bound(bytes_moved, ops, dtype):
+    """(bound_ms, bound_by): the least time the card could take for work
+    that moves ``bytes_moved`` and does ``ops`` operations of ``dtype``."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_a_row(phase, k, reps):
+    """Kernel A on one SPD batch against its plain version: agreement,
+    residuals, exact-zero upper triangle, times, bound and library time.
+    Bars: the kernel must be as good an inverse factor as the plain
+    version (both carry ~cond * eps error at these condition numbers)."""
+    import torch
+    from boundplanner_tpu_torch.ops import linalg
+    from boundplanner_tpu_torch.ops._build import library
+    from boundplanner_tpu_torch.ops.linalg import kkt_inverse, kkt_inverse_plain
+
+    bsz, n = k.shape[0], k.shape[-1]
+    f32 = k.dtype == torch.float32
+    # the library entry launched straight into a preallocated output: the
+    # kernel's own time, without the wrapper's host work per call (checks,
+    # allocation, stream lookup); not counted as a launch of the path
+    entry = getattr(library(), linalg._ENTRY[k.dtype])
+    out_bare = torch.empty_like(k)
+    bare = (k.data_ptr(), out_bare.data_ptr(), bsz, n,
+            torch.cuda.current_stream(k.device).cuda_stream)
+    li = kkt_inverse(k)
+    lp = kkt_inverse_plain(k)
+    eye = torch.eye(n, dtype=k.dtype, device=k.device)
+    identity = eye.expand_as(k).contiguous()
+    library = lambda: torch.linalg.solve_triangular(torch.linalg.cholesky_ex(k)[0], identity,
+                                                    upper=False)
+    ll = library()
+    torch.cuda.synchronize()
+    assert torch.isfinite(li).all(), "kernel A: non-finite output"
+    assert (torch.triu(li, diagonal=1) == 0).all(), "kernel A: strict upper triangle not exactly 0"
+    res_k = (li @ k @ li.mT - eye).abs().amax().item()
+    res_p = (lp @ k @ lp.mT - eye).abs().amax().item()
+    abs_err = (li - lp).abs().amax().item()
+    rel_err = abs_err / lp.abs().amax().item()
+    ms = cuda_ms(lambda: kkt_inverse(k), reps)
+    launch_only_ms = cuda_ms(lambda: entry(*bare), reps)
+    plain_ms = cuda_ms(lambda: kkt_inverse_plain(k), 3)
+    library_ms = cuda_ms(library, reps)
+    dtype = str(k.dtype).split(".")[-1]
+    # K's lower triangle read once (the factorization never reads the
+    # upper), L^{-1} written once whole (its upper triangle as zeros)
+    bytes_moved = bsz * (n * (n + 1) // 2 + n * n) * k.element_size()
+    bound_ms, bound_by = bound(bytes_moved, bsz * 2 * n ** 3 / 3, dtype)
+    row = {"phase": phase, "shape": list(k.shape), "dtype": dtype, "max_abs_err": abs_err,
+           "max_rel_err": rel_err, "resid_inf_kernel": res_k, "resid_inf_plain": res_p,
+           "upper_zero": True, "ms": ms, "launch_only_ms": launch_only_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "roofline_share": bound_ms / ms,
+           "library": "torch.linalg.cholesky_ex + torch.linalg.solve_triangular",
+           "library_ms": library_ms,
+           "library_max_abs_err": (ll - li).abs().amax().item()}
+    emit(row)
+    assert rel_err < (1e-3 if f32 else 1e-9), f"kernel A disagrees with plain at {row['shape']}: {rel_err}"
+    assert res_k <= max(4.0 * res_p, 1e-3 if f32 else 1e-10), f"kernel A residual {res_k} vs {res_p}"
+    return row
 
 
 def phase_kernel_a(rng, dev):
-    import numpy as np
+    """Kernel A at the fleet's shapes, and its finite pattern on non-PD
+    batches (the IPM's finite-step mask reads it per matrix)."""
     import torch
     from boundplanner_tpu_torch.ops.linalg import kkt_inverse, kkt_inverse_plain
 
-    out = {}
-    for bsz in (128, 1):
-        k = torch.from_numpy(spd_batch(rng, bsz)).to(dev)
+    rows = [kernel_a_row("kernel_a", torch.from_numpy(spd_batch(rng, bsz, dtype=dtype)).to(dev),
+                         200)
+            for bsz, dtype in ((128, "float32"), (1, "float32"), (2, "float64"))]
+    for dtype in (torch.float32, torch.float64):
+        k = torch.from_numpy(non_pd_batch(rng, 136)).to(dev, dtype)
         li = kkt_inverse(k)
         lp = kkt_inverse_plain(k)
         torch.cuda.synchronize()
-        assert torch.isfinite(li).all(), "kernel A: non-finite output"
-        upper = torch.triu(li, diagonal=1)
-        assert (upper == 0).all(), "kernel A: strict upper triangle not exactly 0"
-        eye = torch.eye(k.shape[-1], device=dev)
-        res_k = (li @ k @ li.mT - eye).abs().amax().item()
-        res_p = (lp @ k @ lp.mT - eye).abs().amax().item()
-        abs_err = (li - lp).abs().amax().item()
-        rel_err = abs_err / lp.abs().amax().item()
-        ms = cuda_ms(lambda: kkt_inverse(k), 20)
-        plain_ms = cuda_ms(lambda: kkt_inverse_plain(k), 3)
-        row = {"phase": "kernel_a", "shape": list(k.shape), "max_abs_err": abs_err,
-               "max_rel_err": rel_err, "resid_inf_kernel": res_k,
-               "resid_inf_plain": res_p, "upper_zero": True, "ms": ms,
-               "plain_ms": plain_ms}
+        flags = lambda x: torch.isfinite(x).all(dim=(1, 2)).tolist()
+        ok = [i for i, f in enumerate(NON_PD_FINITE) if f]
+        err = ((li[ok] - lp[ok]).abs().amax() / lp[ok].abs().amax()).item()
+        row = {"phase": "kernel_a_non_pd", "shape": list(k.shape),
+               "dtype": str(dtype).split(".")[-1],
+               "finite_kernel": flags(li), "finite_plain": flags(lp),
+               "max_rel_err_finite": err}
         emit(row)
-        # f32 at these condition numbers: both factors carry ~cond*eps
-        # error; the kernel must be as good an inverse factor as the plain
-        assert rel_err < 1e-3, f"kernel A disagrees with plain: {rel_err}"
-        assert res_k <= max(4.0 * res_p, 1e-3), f"kernel A residual {res_k} vs {res_p}"
-        out[bsz] = row
-    return out[128]
+        assert flags(li) == flags(lp) == NON_PD_FINITE, row
+        assert err <= (2e-5 if dtype == torch.float32 else 1e-12), row
+    return rows
 
 
 def projection_batch(rng, count, rows=15, n_active=4, n_obs=16):
@@ -185,9 +291,9 @@ def phase_kernel_b(rng, dev):
     "planner", P = 16 per coalesced call)."""
     import torch
     from boundplanner_tpu_torch.ops.cuda_proj import (
-        line_polytope_projection, line_polytope_projection_plain)
+        DYKSTRA_SWEEPS, OUTER_ITERS, line_polytope_projection, line_polytope_projection_plain)
 
-    out = {}
+    rows_out = []
     for fold, count in (("tick", 12288), ("tick", 1), ("planner", 16), ("planner", 1024)):
         batch = (projection_batch(rng, count) if fold == "tick"
                  else planner_projection_batch(rng, count // 16))
@@ -201,13 +307,20 @@ def phase_kernel_b(rng, dev):
                   (dk - dp).abs().amax().item())
         ms = cuda_ms(lambda: line_polytope_projection(*args), 50)
         plain_ms = cuda_ms(lambda: line_polytope_projection_plain(*args), 5)
-        row = {"phase": "kernel_b", "fold": fold, "problems": count, "rows": 15,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        rows = args[0].shape[1]
+        bytes_moved = sum(t.numel() * t.element_size() for t in (*args, xk, phik, dk))
+        ops = count * (rows * B_OPS_SETUP_ROW + B_OPS_SETUP
+                       + (1 + OUTER_ITERS) * DYKSTRA_SWEEPS * rows * B_OPS_ROW
+                       + OUTER_ITERS * (B_OPS_PHI + B_OPS_POINT) + B_OPS_PHI + B_OPS_DIST)
+        bound_ms, bound_by = bound(bytes_moved, ops, "float32")
+        row = {"phase": "kernel_b", "fold": fold, "problems": count, "rows": rows,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "roofline_share": bound_ms / ms, "library_ms": None}
         emit(row)
         # same f32 arithmetic up to FMA contraction in the kernel's sums
         assert err < 1e-4, f"kernel B disagrees with plain ({fold}, P={count}): {err}"
-        out[fold, count] = row
-    return out["tick", 12288], [out["planner", 16], out["planner", 1024]]
+        rows_out.append(row)
+    return rows_out
 
 
 def phase_small_f64(payload, cfg, dev):
@@ -224,7 +337,7 @@ def phase_small_f64(payload, cfg, dev):
     res = {}
     for where in ("cpu", dev):
         c, q, o = to_torch(small, where, torch.float64)
-        model = FleetMPC(cfg).to(where, torch.float64)
+        model = FleetMPC(cfg, device=where, dtype=torch.float64)
         _, recs = fleet_rollout(c, q, o, model, 2)
         res[str(where)] = to_numpy(recs)
     a, b = res["cpu"], res[str(dev)]
@@ -247,7 +360,7 @@ def phase_main(payload, cfg, dev):
     carry, q0, obs = to_torch((payload["carry"], payload["q0"], payload["obs"]),
                               dev, torch.float32)
     batch = q0.shape[0]
-    model = FleetMPC(cfg).to(dev, torch.float32)
+    model = FleetMPC(cfg, device=dev, dtype=torch.float32)
 
     chunked_rollout(carry, q0, obs, model, N_TICKS, chunk=CHUNK)  # warm-up
     torch.cuda.synchronize()
@@ -309,34 +422,50 @@ def phase_main(payload, cfg, dev):
     return result
 
 
+def phase_main_routes(payload, cfg, dev):
+    """The main path's fleet quality with kernel A's route swapped, in the
+    same call: kernel A again (is the rollout repeatable?), its plain
+    version (the column-step order of the JAX package's off-TPU path), and
+    kernel A in f64 with L^{-1} rounded to f32 once. Shows whether the f32
+    fleet's success moves with the rounding of L^{-1} alone. Quality only:
+    these launches are not the main path's counts."""
+    import torch
+    from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
+    from boundplanner_tpu_torch.ops import qp
+    from boundplanner_tpu_torch.ops.linalg import kkt_inverse, kkt_inverse_plain
+    from boundplanner_tpu_torch.parallel.batch import chunked_rollout
+    from boundplanner_tpu_torch.parallel.fleet_cache import to_torch
+
+    carry, q0, obs = to_torch((payload["carry"], payload["q0"], payload["obs"]),
+                              dev, torch.float32)
+    model = FleetMPC(cfg, device=dev, dtype=torch.float32)
+    routes = {"kernel_a_f32": kkt_inverse, "plain_f32": kkt_inverse_plain,
+              "kernel_a_f64": lambda k: kkt_inverse(k.double()).to(k.dtype)}
+    row = {"phase": "main_path_routes"}
+    try:
+        for name, route in routes.items():
+            qp.kkt_inverse = route
+            t0 = time.perf_counter()
+            _, recs = chunked_rollout(carry, q0, obs, model, N_TICKS, chunk=CHUNK)
+            torch.cuda.synchronize()
+            row[name] = {"success_rate": float(recs["success"].float().mean()),
+                         "max_viol": float(recs["viol"].amax()),
+                         "mean_phi_final": float(recs["phi"][:, -1].mean()),
+                         "wall_s": time.perf_counter() - t0}
+    finally:
+        qp.kkt_inverse = kkt_inverse
+    emit(row)
+    return row
+
+
 def phase_kernel_a_planner(rng, dev):
     """Kernel A at the planner's QP sizes and batches (PLANNER_CHOL_SHAPES),
     f32, with the bars of `phase_kernel_a`."""
     import torch
-    from boundplanner_tpu_torch.ops.linalg import kkt_inverse, kkt_inverse_plain
 
-    rows = []
-    for bsz, n in PLANNER_CHOL_SHAPES:
-        k = torch.from_numpy(spd_batch(rng, bsz, n=n, m=48)).to(dev)
-        li = kkt_inverse(k)
-        lp = kkt_inverse_plain(k)
-        torch.cuda.synchronize()
-        assert torch.isfinite(li).all(), "kernel A: non-finite output"
-        assert (torch.triu(li, diagonal=1) == 0).all(), "kernel A: upper triangle not 0"
-        eye = torch.eye(n, device=dev)
-        res_k = (li @ k @ li.mT - eye).abs().amax().item()
-        res_p = (lp @ k @ lp.mT - eye).abs().amax().item()
-        abs_err = (li - lp).abs().amax().item()
-        rel_err = abs_err / lp.abs().amax().item()
-        row = {"phase": "kernel_a_planner", "shape": list(k.shape), "max_abs_err": abs_err,
-               "max_rel_err": rel_err, "resid_inf_kernel": res_k, "resid_inf_plain": res_p,
-               "upper_zero": True, "ms": cuda_ms(lambda: kkt_inverse(k), 50),
-               "plain_ms": cuda_ms(lambda: kkt_inverse_plain(k), 5)}
-        emit(row)
-        assert rel_err < 1e-3, f"kernel A disagrees with plain at {(bsz, n, n)}: {rel_err}"
-        assert res_k <= max(4.0 * res_p, 1e-3), f"kernel A residual {res_k} vs {res_p}"
-        rows.append(row)
-    return rows
+    return [kernel_a_row("kernel_a_planner",
+                         torch.from_numpy(spd_batch(rng, bsz, n=n, m=48)).to(dev), 50)
+            for bsz, n in PLANNER_CHOL_SHAPES]
 
 
 def plan_draw(draw, cfg, device, plan_dtype, dtype, broker=None):
@@ -498,7 +627,7 @@ def phase_planned_rollout(fleet, cfg, dev):
 
     carry, q0, obs = to_torch(fleet, dev, torch.float32)
     batch = q0.shape[0]
-    model = FleetMPC(cfg).to(dev, torch.float32)
+    model = FleetMPC(cfg, device=dev, dtype=torch.float32)
     t0 = time.perf_counter()
     _, recs = chunked_rollout(carry, q0, obs, model, N_TICKS, chunk=batch)
     torch.cuda.synchronize()
@@ -536,7 +665,7 @@ def main(argv):
     sys.path.insert(0, root)
 
     import numpy as np
-    from boundplanner_tpu.config import perf_mpc_params
+    from boundplanner_tpu_torch.config import perf_mpc_params
     from boundplanner_tpu_torch.ops import _build
     from boundplanner_tpu_torch.parallel.fleet_cache import load
 
@@ -555,38 +684,45 @@ def main(argv):
 
     rng = np.random.default_rng(0)
     a = phase_kernel_a(rng, dev)
-    b, b_plan = phase_kernel_b(rng, dev)
+    b_all = phase_kernel_b(rng, dev)
+    b = b_all[0]
     cfg = perf_mpc_params()
     payload = load(FLEET)
     phase_small_f64(payload, cfg, dev)
     main_res = phase_main(payload, cfg, dev)
+    routes = phase_main_routes(payload, cfg, dev)
     a_plan = phase_kernel_a_planner(rng, dev)
     phase_planner_f64(cfg, dev)
     fleet, plan = phase_plan_fleet(cfg, dev, payload)
     rollout = phase_planned_rollout(fleet, cfg, dev)
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "roofline_share",
+            "library_ms")
+    summary = lambda row: {k: row[k] for k in keys}
     kernels = {"kernels": [
         {"name": "chol_inverse", "route": "cuda",
          "source": "boundplanner_tpu_torch/csrc/chol_inverse.cu",
          "replaces": "boundplanner_tpu/ops/pallas_chol.py:386",
          "launches": main_res["launches"]["chol_inverse"],
          "launches_plan_fleet": plan["launches"]["chol_inverse"],
-         "max_abs_err": a["max_abs_err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
-         "planner_shapes": [{k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms")}
-                            for r in a_plan]},
+         **summary(a[0]), "launch_only_ms": a[0]["launch_only_ms"],
+         "library": a[0]["library"],
+         "shapes": [{"shape": r["shape"], "dtype": r["dtype"], **summary(r),
+                     "launch_only_ms": r["launch_only_ms"]} for r in a + a_plan]},
         {"name": "line_polytope", "route": "cuda",
          "source": "boundplanner_tpu_torch/csrc/line_polytope.cu",
          "replaces": "boundplanner_tpu/ops/pallas_proj.py:95",
          "launches": main_res["launches"]["line_polytope"],
          "launches_plan_fleet": plan["launches"]["line_polytope"],
-         "max_abs_err": b["max_abs_err"], "ms": b["ms"], "plain_ms": b["plain_ms"],
-         "planner_shapes": [{k: r[k] for k in ("problems", "max_abs_err", "ms", "plain_ms")}
-                            for r in b_plan]},
+         **summary(b),
+         "library": None,
+         "shapes": [{"fold": r["fold"], "problems": r["problems"], **summary(r)}
+                    for r in b_all]},
     ]}
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-            json.dump({"card": card, "main": main_res, "plan_fleet": plan,
+            json.dump({"card": card, "main": main_res, "main_routes": routes, "plan_fleet": plan,
                        "planned_rollout": rollout, **kernels}, f, indent=1)
         with open(path + ".log") as src, open(os.path.join(out_dir, "nvcc.log"), "w") as dst:
             dst.write(src.read())

@@ -19,7 +19,7 @@ from scipy.spatial.transform import Rotation as R
 
 import torch
 
-from boundplanner_tpu.config import perf_mpc_params
+from boundplanner_tpu_torch.config import perf_mpc_params
 from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
 from boundplanner_tpu_torch.parallel import fleet, fleet_cache
 from boundplanner_tpu_torch.parallel.batch import fleet_rollout
@@ -50,7 +50,7 @@ def run_threads(fn, n, timeout=300):
 
 
 def test_coalesces_concurrent_calls():
-    brk = BatchBroker(linger=0.05, dtype=torch.float64)
+    brk = BatchBroker(linger=0.05, device="cpu", dtype=torch.float64)
     brk.register("sq", lambda x: x * x)
     out = run_threads(lambda i: brk.call("sq", np.full(3, float(i))), 6)
     for i in range(6):
@@ -63,7 +63,7 @@ def test_coalesces_concurrent_calls():
 def test_stress_more_threads_than_cores():
     """32 threads, several keys, a tiny switch interval: every caller gets
     its own row and the counters add up (a lost update would break them)."""
-    brk = BatchBroker(linger=0.002, max_batch=8, dtype=torch.float64)
+    brk = BatchBroker(linger=0.002, max_batch=8, device="cpu", dtype=torch.float64)
     for k in range(3):
         brk.register(f"k{k}", lambda x, k=k: x * 2.0 + k)
     old = sys.getswitchinterval()
@@ -82,7 +82,7 @@ def test_stress_more_threads_than_cores():
 
 def test_pads_to_power_of_two_and_chunks():
     seen = []
-    brk = BatchBroker(linger=0.05, max_batch=4, dtype=torch.float64)
+    brk = BatchBroker(linger=0.05, max_batch=4, device="cpu", dtype=torch.float64)
     brk.register("id", lambda x: (seen.append(x.shape[0]), x + 1.0)[1])
     out = run_threads(lambda i: brk.call("id", np.full(2, float(i))), 7)
     for i in range(7):
@@ -92,14 +92,14 @@ def test_pads_to_power_of_two_and_chunks():
 
 
 def test_single_call_does_not_deadlock():
-    brk = BatchBroker(linger=0.001, dtype=torch.float64)
+    brk = BatchBroker(linger=0.001, device="cpu", dtype=torch.float64)
     brk.register("neg", lambda x: -x)
     np.testing.assert_allclose(brk.call("neg", np.arange(4.0)), -np.arange(4.0))
     assert brk.batches_run == 1
 
 
 def test_error_reaches_every_caller():
-    brk = BatchBroker(linger=0.05)
+    brk = BatchBroker(linger=0.05, device="cpu")
 
     def boom(x):
         raise ValueError("kernel failed")
@@ -129,7 +129,7 @@ GOALS = [[0.45, -0.4, 0.25], [0.5, -0.45, 0.3], [0.4, -0.35, 0.2], [0.45, -0.45,
 def plan(i, broker):
     planner = BoundPlanner(e_p_max=0.5, obstacles=OBSTACLES, workspace_max=[1.0, 0.38, 1.0],
                            workspace_min=[-0.14, -1.0, 0.0], seed=i, broker=broker,
-                           dtype=torch.float64)
+                           device="cpu", dtype=torch.float64)
     r0 = R.from_euler("XYZ", [0, 90, 0], degrees=True).as_matrix()
     return planner.plan_convex_set_path(np.array([0.55, 0.0, 0.6]), np.array(GOALS[i]), r0, r0)
 
@@ -138,7 +138,7 @@ def test_brokered_planners_match_direct():
     """Four planner threads through one broker plan what four unbrokered
     planners plan."""
     direct = [plan(i, None) for i in range(4)]
-    brk = BatchBroker(linger=0.02, dtype=torch.float64)
+    brk = BatchBroker(linger=0.02, device="cpu", dtype=torch.float64)
     register_planner_kernels(brk, max_set_size=20)
     brokered = run_threads(lambda i: plan(i, brk), 4)
     assert brk.coalesced_calls >= 1
@@ -158,7 +158,7 @@ def test_unported_builders_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn(4, cfg)
     with pytest.raises(NotImplementedError):
-        fleet_cache.build_and_save(512, 0, "unused.pkl")
+        fleet_cache.build_and_save(512, 0, "unused.pkl", device="cpu")
 
 
 def test_cache_path_keys(tmp_path):
@@ -180,7 +180,7 @@ def test_build_and_save_roundtrip(tmp_path):
     scene is a fleet draw of the seed."""
     path = str(tmp_path / "fleet2.pkl")
     payload = fleet_cache.build_and_save(2, 5, path, n_threads=2, dtype=np.float64,
-                                         plan_dtype=torch.float64)
+                                         device="cpu", plan_dtype=torch.float64)
     assert payload["broker_stats"]["calls_served"] > 0
     loaded = fleet_cache.load(path)
     assert loaded["batch"] == 2 and loaded["seed"] == 5
@@ -193,7 +193,7 @@ def test_build_and_save_roundtrip(tmp_path):
     carry, q0, obs = fleet_cache.load_fleet(path, "cpu", torch.float64)
     assert q0.shape == (2, 7) and carry.path.p.shape == (2, 16, 3)
     np.testing.assert_array_equal(carry.path.p.numpy(), payload["carry"].path.p)
-    model = FleetMPC(perf_mpc_params()).to(torch.float64)
+    model = FleetMPC(perf_mpc_params(), device="cpu", dtype=torch.float64)
     _, recs = fleet_rollout(carry, q0, obs, model, 1)
     assert torch.isfinite(recs["phi"]).all()
 
@@ -201,5 +201,5 @@ def test_build_and_save_roundtrip(tmp_path):
 @pytest.mark.parametrize("name", ["test8.pkl", "fleet_b128_s7_segs4.pkl"])
 def test_loads_jax_built_caches(name):
     payload = fleet_cache.load(os.path.join(ROOT, ".fleet_cache", name))
-    carry, q0, obs = fleet_cache.to_torch((payload["carry"], payload["q0"], payload["obs"]))
+    carry, q0, obs = fleet_cache.to_torch((payload["carry"], payload["q0"], payload["obs"]), "cpu")
     assert carry.path.p.shape[0] == q0.shape[0] == obs.a.shape[0]

@@ -8,8 +8,11 @@ card, run it without the JAX-only ``conftest.py``:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda -q
 
 Tolerances: float64 1e-12 (same algorithm, summation order only). float32
-kernel A 2e-5 relative to max|L^{-1}| (the kernel sums the row-inverse
-products in another order than the plain version). float32 kernel B 1e-4
+kernel A 2e-5 relative to max|L^{-1}| (the blocked kernel applies each
+pivot's update with one rounding (FMA), multiplies by the pivot's
+reciprocal, and sums the inverse's products in another order than the
+plain version). Non-PD batches: the same finite/non-finite flag per
+matrix, and the same values where the clamp keeps a matrix finite. float32 kernel B 1e-4
 absolute (FMA contraction in the kernel's dot products; Dykstra contracts,
 so the differences stay at a few ulps of the O(1) coordinates).
 """
@@ -28,6 +31,25 @@ from boundplanner_tpu_torch.ops.linalg import kkt_inverse, kkt_inverse_plain
 def spd(rng, bsz, n):
     a = rng.normal(size=(bsz, n, n))
     return a @ a.transpose(0, 2, 1) + n * np.eye(n)
+
+
+def non_pd_batch(rng, n):
+    """Six matrices that are not positive definite (those of
+    ``test_torch_kernels.py``'s clamp test, at any n >= 8): 0 and 3
+    indefinite with off-diagonal mass (the clamped pivots overflow), 1 one
+    negative pivot, 2 all zero (every pivot clamped), 4 a NaN on the
+    diagonal, 5 rank-deficient PSD. Matrices 1, 2 and 5 stay finite."""
+    ks = spd(rng, 6, n) - 2.5 * n * np.eye(n)
+    ks[1] = np.diag(np.r_[1.0, -1.0, np.ones(n - 2)])
+    ks[2] = 0.0
+    ks[4] = np.eye(n)
+    ks[4][3, 3] = np.nan
+    ks[5] = 0.0
+    ks[5][:8, :8] = spd(rng, 1, 8)[0]
+    return ks
+
+
+NON_PD_FINITE = [False, True, True, False, False, True]
 
 
 def tick_batch(rng, scenes=2, links=6, n_obs=16, n_active=4):
@@ -117,10 +139,46 @@ def test_cuda_chol_inverse_planner_shapes(cuda_device, bsz, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 12, 20, 132])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_chol_inverse_ragged_n(cuda_device, n, dtype):
+    """n not divisible by 8: the ragged last panel, and (n = 3, 12, 20)
+    rows that are not 16-byte aligned in device memory (scalar load path)."""
+    ks = torch.from_numpy(spd(np.random.default_rng(n), 16, n)).to(cuda_device, dtype)
+    got = kkt_inverse(ks)
+    ref = kkt_inverse_plain(ks)
+    torch.cuda.synchronize()
+    tol = 1e-12 if dtype == torch.float64 else 2e-5
+    assert (got - ref).abs().max().item() <= tol * ref.abs().max().item()
+    assert (torch.triu(got, 1) == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 136])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_chol_inverse_non_pd_pattern(cuda_device, n, dtype):
+    """The IPM's finite-step mask reads whether a factor is finite: the
+    blocked kernel must flag the same matrices as the plain version (where
+    inside a non-finite matrix the inf and NaN land may differ), and agree
+    with it where the pivot clamp keeps a matrix finite."""
+    ks = torch.from_numpy(non_pd_batch(np.random.default_rng(7), n)).to(cuda_device, dtype)
+    got = kkt_inverse(ks)
+    ref = kkt_inverse_plain(ks)
+    torch.cuda.synchronize()
+    flags = lambda x: torch.isfinite(x).all(dim=(1, 2)).tolist()
+    assert flags(got) == flags(ref) == NON_PD_FINITE
+    ok = [i for i, f in enumerate(NON_PD_FINITE) if f]
+    tol = 1e-12 if dtype == torch.float64 else 2e-5
+    assert (got[ok] - ref[ok]).abs().max().item() <= tol * ref[ok].abs().max().item()
+    assert (torch.triu(got[ok], 1) == 0).all()
+
+
+@pytest.mark.cuda
 def test_cuda_concurrent_first_launch_builds_once(cuda_device, tmp_path, monkeypatch):
     """8 threads make their first kkt_inverse call at once, from an empty
-    build directory: nvcc runs once, the library loads once, and every
-    thread's result is right."""
+    build directory: the library is built once (one compile per source and
+    a link, which leave no objects behind), loads once, and every thread's
+    result is right."""
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(_build, "_LIB", None)
     nvcc_calls = []

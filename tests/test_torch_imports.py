@@ -1,8 +1,8 @@
 """The port stands apart from JAX: no module of ``boundplanner_tpu_torch``
-and not ``chip_smoke.py`` imports jax, and the only modules of the JAX
-package they import are the jax-free ``boundplanner_tpu.config`` and
-``boundplanner_tpu.native_geom`` (the ctypes geometry core). Every port
-module imports with jax blocked. Also
+and not ``chip_smoke.py`` imports jax, jaxlib or anything of the JAX
+package ``boundplanner_tpu`` (the port keeps its own copies of what it
+needs, such as ``config`` and ``native_geom``). Every port module imports
+with all three blocked. Also
 ``chip_smoke.py``'s refusal contract: without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero and prints no
 result on its standard output.
@@ -20,7 +20,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "boundplanner_tpu_torch")
 SMOKE = os.path.join(ROOT, "chip_smoke.py")
-JAX_FREE = ("boundplanner_tpu.config", "boundplanner_tpu.native_geom")
+BLOCKED = ("jax", "jaxlib", "boundplanner_tpu")
 
 
 def port_sources():
@@ -50,10 +50,7 @@ def test_port_sources_found():
 @pytest.mark.parametrize("path", port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_and_only_config_from_jax_package(path):
     for mod in imported_modules(path):
-        top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib"), f"{path} imports {mod}"
-        if top == "boundplanner_tpu":
-            assert mod in JAX_FREE, f"{path} imports {mod}"
+        assert mod.split(".")[0] not in BLOCKED, f"{path} imports {mod}"
 
 
 def port_modules():
@@ -70,13 +67,13 @@ def port_modules():
 @pytest.fixture(scope="module")
 def imported_with_jax_blocked():
     """Import every port module in a fresh interpreter whose import system
-    refuses jax and jaxlib; returns {module: error or None}."""
+    refuses jax, jaxlib and the JAX package; returns {module: error or None}."""
     code = (
         "import importlib, importlib.abc, json, sys\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib'):\n"
-        "            raise ImportError('jax is blocked: ' + name)\n"
+        f"        if name.split('.')[0] in {BLOCKED!r}:\n"
+        "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "out = {}\n"
         f"for m in {port_modules()!r}:\n"
@@ -106,7 +103,7 @@ def test_importing_the_slice_loads_no_jax():
     code = ("import sys; import boundplanner_tpu_torch.parallel.batch, "
             "boundplanner_tpu_torch.parallel.fleet_cache, "
             "boundplanner_tpu_torch.parallel.fleet, boundplanner_tpu_torch.parallel.broker; "
-            "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')))")
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}))")
     proc = run_python(["-c", code], ROOT)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"

@@ -4,7 +4,8 @@ and the CPU side of the device dispatch rules. The kernels themselves are
 held against their plain versions on the card by ``test_torch_cuda.py``.
 
 Kernel A: ``ops.linalg.kkt_inverse`` (L^{-1} of SPD matrices) vs
-``pallas_chol.cholesky_inverse(interpret=True, interleave=True)``.
+``pallas_chol.cholesky_inverse(interpret=True, interleave=True)``, the
+schedule the JAX package runs, and vs its three other schedules.
 Kernel B: ``ops.cuda_proj.line_polytope_projection`` vs
 ``pallas_proj.line_polytope_projection(interpret=True)``.
 
@@ -25,7 +26,7 @@ import torch
 from boundplanner_tpu.ops.pallas_chol import cholesky_inverse
 from boundplanner_tpu.ops import pallas_proj
 from boundplanner_tpu_torch.ops import cuda_proj
-from boundplanner_tpu_torch.ops.linalg import kkt_inverse, kkt_inverse_plain
+from boundplanner_tpu_torch.ops.linalg import chol_inverse_smem, kkt_inverse, kkt_inverse_plain
 from test_torch_cuda import planner_batch, spd, tick_batch
 
 torch.set_num_threads(1)
@@ -44,6 +45,43 @@ def test_plain_chol_inverse_matches_pallas(n, dtype):
     scale = np.abs(ref).max()
     np.testing.assert_allclose(got, ref, rtol=0, atol=tol * scale)
     assert np.all(np.triu(got, 1) == 0.0)                  # exactly lower-triangular
+
+
+SCHEDULES = {
+    "rank1_full": dict(two_d=False, rank2=False),
+    "rank1_2d": dict(two_d=True, rank2=False),
+    "rank2": dict(rank2=True),
+    "interleave": dict(interleave=True),
+}
+
+
+@pytest.mark.parametrize("n", [8, 16, 24])
+@pytest.mark.parametrize("schedule", list(SCHEDULES))
+def test_plain_chol_inverse_matches_pallas_schedules(schedule, n):
+    """Every schedule of the one TPU function (`pallas_chol.py` `_kernel`
+    full and two_d, `_kernel_r2`, `_kernel_il`) computes the L^{-1} that
+    kernel A's plain version computes: kernel A is the counterpart of all
+    four. float64, the tolerance of the test above."""
+    ks = spd(np.random.default_rng(100 + n), 3, n)
+    ref = np.asarray(cholesky_inverse(jnp.asarray(ks), interpret=True, **SCHEDULES[schedule]))
+    got = kkt_inverse(torch.from_numpy(ks)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12 * np.abs(ref).max())
+    assert np.all(np.triu(ref, 1) == 0.0) and np.all(np.triu(got, 1) == 0.0)
+
+
+@pytest.mark.parametrize("n,itemsize,size", [(136, 4, 87584), (136, 8, 170816),
+                                             (3, 4, 1328), (226, 4, 232448)])
+def test_chol_inverse_smem_counts_padded_layout(n, itemsize, size):
+    """The wrapper's shared-memory check counts kernel A's padded layout:
+    rows of ceil8(n) + 16 bytes, the 8-wide panel, the row block in rows
+    of 8 + 16 bytes, the next diagonal block's factor and inverse."""
+    assert chol_inverse_smem(n, itemsize) == size
+
+
+def test_chol_inverse_smem_limit_in_float64():
+    """n = 160 fits one block's 227 KB in float64 and n = 161 does not:
+    past it the wrapper refuses a CUDA tensor."""
+    assert chol_inverse_smem(160, 8) <= 232448 < chol_inverse_smem(161, 8)
 
 
 def test_plain_chol_inverse_non_pd_clamp_matches_pallas():

@@ -21,6 +21,7 @@ import torch
 from torch.func import vmap as tvmap
 
 from boundplanner_tpu.config import perf_mpc_params
+from boundplanner_tpu_torch import config as tconfig
 from boundplanner_tpu.mpc import bound_mpc as jmpc
 from boundplanner_tpu.mpc import ocp as jocp
 from boundplanner_tpu.mpc import ocp_jac as jjac
@@ -36,6 +37,7 @@ from boundplanner_tpu_torch.parallel.fleet_cache import load, to_torch, tree_map
 
 torch.set_num_threads(1)
 CFG = perf_mpc_params()
+TCFG = tconfig.perf_mpc_params()
 FLEET8 = os.path.join(os.path.dirname(__file__), "..", ".fleet_cache", "test8.pkl")
 
 
@@ -66,11 +68,11 @@ def tick():
         q0, zeros, zeros, zeros, q0)
     jparams = jax.tree.map(np.asarray, J_PARAMS(jcarry, jmeas, jobs))
 
-    model = tmpc.FleetMPC(CFG).to(torch.float64)
+    model = tmpc.FleetMPC(TCFG, device="cpu", dtype=torch.float64)
     tcarry, tq0, tobs = to_torch((carry, q0, obs), "cpu", torch.float64)
     tz = torch.zeros_like(tq0)
     tmeas = tbatch._plant_measurement(tq0, tz, tz, tz, tq0, model.st.chain)
-    tparams = tmpc.build_tick_params(tcarry, tmeas, tobs, CFG, model.st)[0]
+    tparams = tmpc.build_tick_params(tcarry, tmeas, tobs, TCFG, model.st)[0]
     return jparams, tparams, model
 
 
@@ -99,9 +101,9 @@ def shared_params(jparams):
 @pytest.mark.parametrize("which", [0, 1], ids=["x_zero", "x_random"])
 def test_evaluate_matches_jax(tick, which):
     jparams, _, model = tick
-    x = np.stack([xs_for(tocp.n_vars(CFG.n))[which]] * 2)
+    x = np.stack([xs_for(tocp.n_vars(TCFG.n))[which]] * 2)
     rj, gj = J_EVAL(jnp.asarray(x), jax.tree.map(jnp.asarray, jparams))
-    rt, gt = tvmap(lambda xx, pp: tocp.evaluate(xx, pp, CFG, model.st))(
+    rt, gt = tvmap(lambda xx, pp: tocp.evaluate(xx, pp, TCFG, model.st))(
         torch.from_numpy(x), shared_params(jparams))
     assert gt.shape == (2, jocp.n_constraints(CFG)) == (2, 2439)
     close(rj, rt, 1e-9)
@@ -111,9 +113,9 @@ def test_evaluate_matches_jax(tick, which):
 @pytest.mark.parametrize("which", [0, 1], ids=["x_zero", "x_random"])
 def test_evaluate_with_jac_structured_matches_jax(tick, which):
     jparams, _, model = tick
-    x = np.stack([xs_for(tocp.n_vars(CFG.n))[which]] * 2)
+    x = np.stack([xs_for(tocp.n_vars(TCFG.n))[which]] * 2)
     jout = J_EVAL_JAC(jnp.asarray(x), jax.tree.map(jnp.asarray, jparams))
-    tout = tvmap(lambda xx, pp: tjac.evaluate_with_jac_structured(xx, pp, CFG, model.st))(
+    tout = tvmap(lambda xx, pp: tjac.evaluate_with_jac_structured(xx, pp, TCFG, model.st))(
         torch.from_numpy(x), shared_params(jparams))
     st = model.st
     shapes = [(2, st.m_r), (2, 2439), (2, st.m_r, st.nx), (2, st.m_run, st.nx)]
@@ -125,7 +127,7 @@ def test_evaluate_with_jac_structured_matches_jax(tick, which):
 def test_struct_tail_products_match_dense(tick):
     _, _, model = tick
     st = model.st
-    dense = torch.from_numpy(tjac._static_bound_rows(CFG.n, CFG.dt))
+    dense = torch.from_numpy(tjac._static_bound_rows(TCFG.n, TCFG.dt))
     np.testing.assert_array_equal(dense.numpy(), jjac._static_bound_rows(CFG.n, CFG.dt))
     rng = np.random.default_rng(12)
     v = torch.from_numpy(rng.normal(size=(3, st.nx)))
@@ -146,7 +148,7 @@ def first_qp(tick):
     """The first SQP subproblem of the tick for scene 0, float64 (numpy):
     hess, grad, G_run, h_run, h_tail."""
     jparams = tick[0]
-    x0 = np.zeros((2, tocp.n_vars(CFG.n)))
+    x0 = np.zeros((2, tocp.n_vars(TCFG.n)))
     r, g, jr, jg = (np.asarray(a)[0] for a in
                     J_EVAL_JAC(jnp.asarray(x0), jax.tree.map(jnp.asarray, jparams)))
     m_run = JST.m_run
@@ -191,7 +193,7 @@ def test_solve_qp_f32_lowp_matches_jax(first_qp):
     max|x| of each other."""
     x64 = np.asarray(jax_qp(first_qp, jnp.float64).x)
     xj = np.asarray(jax_qp(first_qp, jnp.float32, lowp=True, lowp_rd=True).x)
-    st32 = tmpc.FleetMPC(CFG).to(torch.float32).st
+    st32 = tmpc.FleetMPC(TCFG, device="cpu", dtype=torch.float32).st
     xt = port_qp(first_qp, st32, torch.float32, lowp=True, lowp_rd=True).x
     assert xt.dtype == torch.float32 and torch.isfinite(xt).all()
     xt = xt[0].numpy()

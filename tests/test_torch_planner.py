@@ -17,6 +17,7 @@ from scipy.spatial.transform import Rotation as R
 import torch
 
 from boundplanner_tpu.config import perf_mpc_params
+from boundplanner_tpu_torch import config as tconfig
 from boundplanner_tpu.demo import DEMO_Q0
 from boundplanner_tpu.parallel import fleet as jfleet
 from boundplanner_tpu.planner import BoundPlanner as JaxPlanner
@@ -62,7 +63,7 @@ def jax_scene():
 @pytest.fixture(scope="module")
 def port_scene():
     obstacles, goal = draw_scene(1)
-    return tfleet.plan_scene(tfleet.DEMO_Q0, goal, obstacles, 8, perf_mpc_params(),
+    return tfleet.plan_scene(tfleet.DEMO_Q0, goal, obstacles, 8, tconfig.perf_mpc_params(),
                              dtype=np.float64, device="cpu", plan_dtype=torch.float64)
 
 

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import torch
 
 from boundplanner_tpu.config import perf_mpc_params
+from boundplanner_tpu_torch import config as tconfig
 from boundplanner_tpu_torch.path import reference_path as tpath
 from boundplanner_tpu_torch.planner import set_finder as tsf
 from boundplanner_tpu_torch.utils import sets as tsets
@@ -155,11 +156,10 @@ def test_build_path_bit_equal(dtype):
     erb = [np.array([90, 90, 90, -90, -90, -90]) * np.pi / 180] * 3
     a_sets = [np.vstack([np.eye(3), -np.eye(3)])] * 3
     b_sets = [rng.uniform(0.5, 1.0, 6) for _ in range(3)]
-    nr_segs = perf_mpc_params().nr_segs
     got = tpath.build_path(p_via, list(rots), bp1, br1, erb, a_sets, b_sets,
-                           nr_segs=nr_segs, dtype=dtype)
+                           nr_segs=tconfig.perf_mpc_params().nr_segs, dtype=dtype)
     ref = jpath.build_path(p_via, list(rots), bp1, br1, erb, a_sets, b_sets,
-                           nr_segs=nr_segs, dtype=dtype)
+                           nr_segs=perf_mpc_params().nr_segs, dtype=dtype)
     assert got._fields == ref._fields
     for g, r in zip(got, ref):
         assert np.asarray(g).dtype == np.asarray(r).dtype

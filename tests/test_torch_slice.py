@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import torch
 
 from boundplanner_tpu.config import perf_mpc_params
+from boundplanner_tpu_torch import config as tconfig
 from boundplanner_tpu.mpc import bound_mpc as jmpc
 from boundplanner_tpu.parallel.batch import fleet_rollout as jax_fleet_rollout
 from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
@@ -30,6 +31,7 @@ from boundplanner_tpu_torch.parallel.fleet_cache import load, to_numpy, to_torch
 
 torch.set_num_threads(1)
 CFG = perf_mpc_params()
+TCFG = tconfig.perf_mpc_params()
 FLEET8 = os.path.join(os.path.dirname(__file__), "..", ".fleet_cache", "test8.pkl")
 TICKS = 3
 
@@ -47,7 +49,7 @@ def rollouts():
     jcarry = jmpc.MPCCarry(jmpc.PathState(*carry.path), *carry[1:])
     jfinal, jrecs = jax_fleet_rollout(jcarry, jnp.asarray(q0), jmpc.ObstacleArrays(*obs),
                                       CFG, TICKS)
-    model = FleetMPC(CFG).to(torch.float64)
+    model = FleetMPC(TCFG, device="cpu", dtype=torch.float64)
     tfinal, trecs = fleet_rollout(*to_torch((carry, q0, obs), "cpu", torch.float64),
                                   model, TICKS)
     return (jax.tree.map(np.asarray, (jfinal, jrecs)), to_numpy((tfinal, trecs)))

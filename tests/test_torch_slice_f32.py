@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import torch
 
 from boundplanner_tpu.config import perf_mpc_params
+from boundplanner_tpu_torch import config as tconfig
 from boundplanner_tpu.mpc import bound_mpc as jmpc
 from boundplanner_tpu.parallel.batch import fleet_rollout as jax_fleet_rollout
 from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
@@ -27,6 +28,7 @@ from boundplanner_tpu_torch.parallel.fleet_cache import load, to_numpy, to_torch
 
 torch.set_num_threads(1)
 CFG = perf_mpc_params()
+TCFG = tconfig.perf_mpc_params()
 FLEET8 = os.path.join(os.path.dirname(__file__), "..", ".fleet_cache", "test8.pkl")
 TICKS = 4
 
@@ -40,7 +42,7 @@ def test_f32_fleet_within_jax_spread():
                                  jmpc.ObstacleArrays(*obs), CFG, TICKS)
     jrecs = jax.tree.map(np.asarray, jrecs)
 
-    model = FleetMPC(CFG).to(torch.float32)
+    model = FleetMPC(TCFG, device="cpu", dtype=torch.float32)
     final, trecs = fleet_rollout(*to_torch((carry, q0, obs), "cpu", torch.float32),
                                  model, TICKS)
     trecs = to_numpy(trecs)
