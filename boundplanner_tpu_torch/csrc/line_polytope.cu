@@ -10,20 +10,50 @@
 // The clamps are those of the Pallas kernel: |d|^2 and |a_r|^2 floored at
 // 1e-12, phi clipped to [0, 1].
 //
-// What bounds it on the H100: the dependent chain inside one problem,
-// 10 x 4 x R row corrections (600 at R = 15) each waiting on the previous
-// one, plus the initial projection. Data is small (76 bytes of input per
-// row block per problem; 12288 problems per tick at 128 scenes), so
-// neither bandwidth nor FLOPs bound it.
+// What bounds it on the H100: latency, not bytes or FLOPs. One thread
+// walks its problem's dependent chain of row corrections (add, dot, IEEE
+// division, clamp, scale, subtract, each waiting on the last), and a warp
+// takes as long as its slowest problem. Run as written, that chain is
+// 11 x 4 x R corrections (660 at R = 15) for every problem. At the tick's
+// fold (12288 problems of 284 bytes in and out, 1 us of memory traffic)
+// the launch has about one warp per scheduler, with nothing to hide the
+// chain behind.
 //
-// What the design does about it: one thread per problem, with the rows,
-// the row norms and the Dykstra corrections e[r] in registers (the row
-// loops are unrolled to the compile-time bound of 16 rows and masked to
-// R), so the chain runs at register latency with no memory traffic after
-// the loads. The (scene, link, obstacle) axes are folded into the problem
-// axis by the caller, so one launch covers a whole tick. The TPU's
-// 128-lane padding and (R, 3, B) transposes are not carried over: the
-// layout stays (P, R, 3) and the ragged edge is masked by the thread index.
+// What the design does about it: it walks only the part of the chain that
+// can change a value, and walks it exactly as written.
+//  - No-op rows are dropped at load. A row with a = +-0 in all three
+//    components and b >= -1e26 (or NaN) has a correction t * a = +-0 (t is
+//    finite: -b / 1e-12 <= 1e38), so it leaves y and its own correction
+//    equal by value (only a -0 may turn into +0). The tick's inactive
+//    obstacle slots and the 9 padded rows of every box are such rows. A
+//    zero row with b < -1e26 stays: t overflows to inf and inf * 0 gives
+//    NaN, as in the plain version. The kept rows keep their order; they are
+//    re-read from memory into static register slots (rows, norms and
+//    corrections stay in registers: 205 of them, no local memory). The
+//    row loops branch out past the last kept row; a guard around each row
+//    compiles to predicated code in which a skipped row still takes its
+//    latency.
+//  - A Dykstra call stops after the first sweep that leaves y and every
+//    correction equal by value to their values before it. A sweep is a
+//    function of that state alone, so every later sweep would repeat it.
+//    (NaN != NaN: a NaN state runs every sweep.)
+//  - The outer loop stops once an iteration returns its input x by value:
+//    the corrections restart from 0 at every call, so the iteration is a
+//    function of x alone and every later one would return x again.
+// Neither exit uses a tolerance. Each kept row's arithmetic is the same
+// expression as in the full chain (same operand order, IEEE division by the
+// clamped |a|^2, the same clamp), so the results equal the full chain's by
+// value. Division by a reciprocal, a . (y + e) rewritten as a . y + t |a|^2,
+// or any reassociation would move the rounding and are not used.
+// One thread per problem: Dykstra is sequential over rows, so splitting a
+// problem's rows across lanes would add shuffles to the chain. Blocks of 64
+// threads put every SM to work at the tick's fold (192 blocks). A row count
+// made uniform over the warp (no-op rows padding the short lanes) and the
+// rows kept in shared memory (127 registers) both measured slower.
+// The (scene, link, obstacle) axes are folded into the problem axis by the
+// caller, so one launch covers a whole tick. The TPU's 128-lane padding
+// and (R, 3, B) transposes are not carried over: the layout stays
+// (P, R, 3) and the ragged edge is masked by the thread index.
 
 #include <cuda_runtime.h>
 
@@ -32,33 +62,49 @@ namespace {
 constexpr int kMaxRows = 16;
 constexpr int kOuterIters = 10;
 constexpr int kDykstraSweeps = 4;
-constexpr int kThreads = 128;
+constexpr int kThreads = 64;
 
+// A zero row whose b keeps -b / 1e-12 finite (NaN included) changes nothing.
+template <typename T>
+__device__ __forceinline__ bool no_op_row(T a0, T a1, T a2, T b) {
+  return a0 == T(0) && a1 == T(0) && a2 == T(0) && !(b < T(-1e26));
+}
+
+// Dykstra projection of y onto the first `kept` rows, at most
+// kDykstraSweeps sweeps, stopping at the first sweep that changes nothing.
 template <typename T>
 __device__ __forceinline__ void dykstra(const T (&a)[kMaxRows][3],
                                         const T (&b)[kMaxRows],
-                                        const T (&an2)[kMaxRows], int rows,
+                                        const T (&an2)[kMaxRows], int kept,
                                         T (&y)[3]) {
   T e[kMaxRows][3];
 #pragma unroll
   for (int r = 0; r < kMaxRows; ++r) e[r][0] = e[r][1] = e[r][2] = T(0);
   for (int sweep = 0; sweep < kDykstraSweeps; ++sweep) {
+    const T y0 = y[0], y1 = y[1], y2 = y[2];
+    bool same = true;
 #pragma unroll
     for (int r = 0; r < kMaxRows; ++r) {
-      if (r < rows) {
-        const T w0 = y[0] + e[r][0];
-        const T w1 = y[1] + e[r][1];
-        const T w2 = y[2] + e[r][2];
-        const T viol = (a[r][0] * w0 + a[r][1] * w1 + a[r][2] * w2 - b[r]) / an2[r];
-        const T t = viol > T(0) ? viol : T(0);
-        e[r][0] = t * a[r][0];
-        e[r][1] = t * a[r][1];
-        e[r][2] = t * a[r][2];
-        y[0] = w0 - e[r][0];
-        y[1] = w1 - e[r][1];
-        y[2] = w2 - e[r][2];
-      }
+      // a branch past the remaining rows, not a guard around each: a
+      // guarded row compiles to predicated code that still takes its time
+      if (r >= kept) break;
+      const T w0 = y[0] + e[r][0];
+      const T w1 = y[1] + e[r][1];
+      const T w2 = y[2] + e[r][2];
+      const T viol = (a[r][0] * w0 + a[r][1] * w1 + a[r][2] * w2 - b[r]) / an2[r];
+      const T t = viol > T(0) ? viol : T(0);
+      const T s0 = t * a[r][0];
+      const T s1 = t * a[r][1];
+      const T s2 = t * a[r][2];
+      same &= (s0 == e[r][0]) & (s1 == e[r][1]) & (s2 == e[r][2]);
+      e[r][0] = s0;
+      e[r][1] = s1;
+      e[r][2] = s2;
+      y[0] = w0 - e[r][0];
+      y[1] = w1 - e[r][1];
+      y[2] = w2 - e[r][2];
     }
+    if (same & (y[0] == y0) & (y[1] == y1) & (y[2] == y2)) break;
   }
 }
 
@@ -78,22 +124,33 @@ line_polytope_kernel(const T* __restrict__ a_in, const T* __restrict__ b_in,
                      T* __restrict__ dist_out, int count, int rows) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= count) return;
+  const T* a_p = a_in + static_cast<size_t>(p) * rows * 3;
+  const T* b_p = b_in + static_cast<size_t>(p) * rows;
 
-  T a[kMaxRows][3], b[kMaxRows], an2[kMaxRows];
+  // which rows can change a value (bit r: row r is kept)
+  unsigned keep = 0;
 #pragma unroll
   for (int r = 0; r < kMaxRows; ++r) {
-    if (r < rows) {
-      const size_t o = (static_cast<size_t>(p) * rows + r) * 3;
-      a[r][0] = a_in[o];
-      a[r][1] = a_in[o + 1];
-      a[r][2] = a_in[o + 2];
-      b[r] = b_in[static_cast<size_t>(p) * rows + r];
-      const T n2 = a[r][0] * a[r][0] + a[r][1] * a[r][1] + a[r][2] * a[r][2];
-      an2[r] = n2 > T(1e-12) ? n2 : T(1e-12);
-    } else {
-      a[r][0] = a[r][1] = a[r][2] = b[r] = T(0);
-      an2[r] = T(1);
-    }
+    if (r < rows && !no_op_row(a_p[3 * r], a_p[3 * r + 1], a_p[3 * r + 2], b_p[r]))
+      keep |= 1u << r;
+  }
+  const int kept = __popc(keep);
+
+  // the kept rows, in order, into static slots 0 .. kept-1 (a second read
+  // of rows the first pass brought into L1)
+  T a[kMaxRows][3], b[kMaxRows], an2[kMaxRows];
+  unsigned rest = keep;
+#pragma unroll
+  for (int j = 0; j < kMaxRows; ++j) {
+    if (j >= kept) break;
+    const int r = __ffs(rest) - 1;
+    rest &= rest - 1;
+    a[j][0] = a_p[3 * r];
+    a[j][1] = a_p[3 * r + 1];
+    a[j][2] = a_p[3 * r + 2];
+    b[j] = b_p[r];
+    const T n2 = a[j][0] * a[j][0] + a[j][1] * a[j][1] + a[j][2] * a[j][2];
+    an2[j] = n2 > T(1e-12) ? n2 : T(1e-12);
   }
   T p0[3], d[3];
 #pragma unroll
@@ -105,12 +162,17 @@ line_polytope_kernel(const T* __restrict__ a_in, const T* __restrict__ b_in,
   const T denom = dd > T(1e-12) ? dd : T(1e-12);
 
   T x[3] = {p0[0], p0[1], p0[2]};
-  dykstra(a, b, an2, rows, x);
+  dykstra(a, b, an2, kept, x);
   for (int it = 0; it < kOuterIters; ++it) {
     const T phi = seg_phi(x, p0, d, denom);
+    T z[3];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) x[i] = p0[i] + phi * d[i];
-    dykstra(a, b, an2, rows, x);
+    for (int i = 0; i < 3; ++i) z[i] = p0[i] + phi * d[i];
+    dykstra(a, b, an2, kept, z);
+    const bool fixed = (z[0] == x[0]) & (z[1] == x[1]) & (z[2] == x[2]);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) x[i] = z[i];
+    if (fixed) break;
   }
   const T phi = seg_phi(x, p0, d, denom);
   T dist2 = T(0);

@@ -4,6 +4,12 @@
 Run from the repository root on a machine with one NVIDIA GPU (H100):
 
     python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py --compare-kernel-b SOURCE [--out DIR]
+
+The second form only builds, then times kernel B of SOURCE (another
+tree's ``csrc/line_polytope.cu``, same C entry) against this tree's in
+turns (SOURCE, this, this, SOURCE) at kernel B's folds, and checks that
+both give the same outputs by value; it exits non-zero where they differ.
 
 Phases (each asserts; any failure exits non-zero):
 
@@ -17,13 +23,16 @@ Phases (each asserts; any failure exits non-zero):
 3. kernel B (segment-polytope projection) against its plain version at
    the tick's shapes, P = 12288 and P = 1, R = 15, with zero-padded rows
    and inactive obstacles, and at the planner's, P = 16 and P = 1024 (one
-   and 64 coalesced `find_set_line` calls on fleet draws);
+   and 64 coalesced `find_set_line` calls on fleet draws), on the inputs
+   of the cached fleet's first tick ("tick_real", P = 12288), and on five
+   edge cases of its row rule and exits (the same finite pattern as the
+   plain version, and agreement where finite);
 4. a small f64 rollout on the card against the same rollout on the CPU;
 5. the main path: the cached 128-scene fleet, ``FleetMPC(perf_mpc_params())``
    -> ``chunked_rollout`` for 20 ticks in f32 (warm-up, then timed), with
    the kernels' launch counts, fleet quality and single-scene tick latency;
-   then the same fleet's quality with kernel A's route swapped (kernel A
-   again, its plain version, kernel A in f64);
+   then the same fleet's quality with a kernel's route swapped (kernel A
+   again, its plain version, kernel A in f64, kernel B's plain version);
 6. kernel A against its plain version at the planner's shapes, f32:
    batch 64 at n = 3, 4, 8, 12, 16, 20, 24, and (1, 3, 3), (1024, 3, 3),
    (1280, 4, 4);
@@ -45,9 +54,16 @@ the roofline share (bound over time), and ``library_ms``: for kernel A the
 two library calls ``torch.linalg.cholesky_ex`` then
 ``torch.linalg.solve_triangular(L, I, upper=False)`` at the same shape
 (timed here only; the port never calls them), for kernel B null (no
-PyTorch call computes a segment-polytope closest pair). Kernel A's rows
-also give ``launch_only_ms``: its library entry launched straight into a
+PyTorch call computes a segment-polytope closest pair). Every kernel row
+also gives ``launch_only_ms``: its library entry launched straight into a
 preallocated output, the kernel's time without the wrapper's host work.
+Kernel B's bound counts the rows it keeps (every row but the zero rows
+that change nothing) over all 11 x 4 sweeps, not counting off the exits,
+which depend on rounding; ``bound_ms_all_rows`` counts every row, as
+before the kernel dropped rows. Kernel B's rows also give the row
+corrections that each warp's slowest problem runs
+(``chain_warp_max_mean``, ``chain_warp_max_max``), replayed on the host by
+``ops/proj_chain.py`` (numpy, without the kernel's FMA contraction).
 
 Earlier lines print JSON with the numbers; the line before the last is the
 kernels' summary, the last line ``{"ok": true, "device": {...}}``. No JAX
@@ -87,7 +103,7 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}   # outside the tensor cor
 # kernel B's operations per problem (csrc/line_polytope.cu): 17 per row
 # correction (w = y + e, a.w - b, / |a|^2, clamp, e = t a, y = w - e), 11
 # per segment parameter and 6 per segment point, 6 per row and 9 for the
-# setup, 16 for the final distance
+# setup, 16 for the final distance; the row terms count the kept rows
 B_OPS_ROW, B_OPS_PHI, B_OPS_POINT, B_OPS_SETUP_ROW, B_OPS_SETUP, B_OPS_DIST = 17, 11, 6, 6, 9, 16
 
 
@@ -286,41 +302,177 @@ def planner_projection_batch(rng, calls):
     return f(a), f(b), f(p0), f(p1)
 
 
-def phase_kernel_b(rng, dev):
-    """Kernel B at the tick's shapes (fold "tick") and the planner's (fold
-    "planner", P = 16 per coalesced call)."""
-    import torch
-    from boundplanner_tpu_torch.ops.cuda_proj import (
-        DYKSTRA_SWEEPS, OUTER_ITERS, line_polytope_projection, line_polytope_projection_plain)
+def edge_projection_batch():
+    """Five edge cases of kernel B's row rule and exits, R = 8, a box in
+    rows 0-5 unless said, rows 6-7 zero: 0 zero rows with b = -3 and
+    -1e25 (no-ops, dropped; row 7 is a = (-0, 0, -0)); 1 a zero row with
+    b = -1e30 (kept: -b / 1e-12 overflows, NaN in the kernel and the
+    plain version alike); 2 a NaN in p0; 3 an all-zero problem (a = 0,
+    b = 0, p0 = p1 = 0); 4 a segment through the box (the inside case of
+    tests/test_torch_kernels.py). Problems 1 and 2 end non-finite."""
+    import numpy as np
 
-    rows_out = []
+    eye = np.eye(3)
+    box_a = np.vstack([eye, -eye])
+    center, half = np.array([0.2, -0.1, 0.3]), np.array([0.15, 0.1, 0.2])
+    box_b = np.concatenate([center + half, -(center - half)])
+    a = np.zeros((5, 8, 3))
+    b = np.full((5, 8), 10.0 - 0.001)
+    a[[0, 1, 2, 4], :6] = box_a
+    b[[0, 1, 2], :6] = box_b
+    b[4, :6] = 0.5
+    b[0, 6:] = (-3.0, -1e25)
+    a[0, 7] = (-0.0, 0.0, -0.0)
+    b[1, 6] = -1e30
+    b[3] = 0.0
+    p0 = np.array([[1.0, 0.5, 0.9]] * 3 + [[0.0] * 3, [-1.0, 0.0, 0.0]])
+    p1 = np.array([[0.8, -0.6, 1.2]] * 3 + [[0.0] * 3, [1.0, 0.0, 0.0]])
+    p0[2, 0] = np.nan
+    f = lambda x: np.ascontiguousarray(x, dtype=np.float32)
+    return f(a), f(b), f(p0), f(p1)
+
+
+EDGE_FINITE = [True, False, False, True, True]
+
+
+def real_tick_batch(payload, cfg, dev):
+    """The (a, b, p0, p1) that the cached fleet's first tick hands to kernel
+    B (its link collision sets), captured on the card in f32."""
+    import torch
+    from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
+    from boundplanner_tpu_torch.ops.proj_chain import capture_tick_inputs
+    from boundplanner_tpu_torch.parallel.fleet_cache import to_torch
+
+    carry, q0, obs = to_torch((payload["carry"], payload["q0"], payload["obs"]),
+                              dev, torch.float32)
+    return capture_tick_inputs(carry, q0, obs, FleetMPC(cfg, device=dev, dtype=torch.float32))
+
+
+def kernel_b_cases(rng, dev, real):
+    """(fold, inputs on the card) at kernel B's folds: the tick's and the
+    planner's, the fleet's first tick, the edge cases."""
+    import torch
+
+    cases = []
     for fold, count in (("tick", 12288), ("tick", 1), ("planner", 16), ("planner", 1024)):
         batch = (projection_batch(rng, count) if fold == "tick"
                  else planner_projection_batch(rng, count // 16))
-        args = [torch.from_numpy(x).to(dev) for x in batch]
-        xk, phik, dk = line_polytope_projection(*args)
-        xp, phip, dp = line_polytope_projection_plain(*args)
+        cases.append((fold, [torch.from_numpy(x).to(dev) for x in batch]))
+    cases.append(("tick_real", list(real)))
+    cases.append(("edge", [torch.from_numpy(x).to(dev) for x in edge_projection_batch()]))
+    return cases
+
+
+def kernel_b_launch_only_ms(entry, args, reps):
+    """Kernel B's C entry launched straight into preallocated outputs."""
+    import torch
+
+    a = args[0]
+    count, rows = a.shape[0], a.shape[1]
+    out = (torch.empty_like(args[2]), torch.empty(count, dtype=a.dtype, device=a.device),
+           torch.empty(count, dtype=a.dtype, device=a.device))
+    bare = (*(t.data_ptr() for t in (*args, *out)), count, rows,
+            torch.cuda.current_stream(a.device).cuda_stream)
+    return cuda_ms(lambda: entry(*bare), reps)
+
+
+def phase_kernel_b(rng, dev, real):
+    """Kernel B at the tick's shapes (fold "tick"), the planner's (fold
+    "planner", P = 16 per coalesced call), the fleet's first tick (fold
+    "tick_real") and the edge cases (fold "edge")."""
+    import torch
+    from boundplanner_tpu_torch.ops._build import library
+    from boundplanner_tpu_torch.ops.cuda_proj import (
+        DYKSTRA_SWEEPS, OUTER_ITERS, line_polytope_projection, line_polytope_projection_plain)
+    from boundplanner_tpu_torch.ops.proj_chain import kept_rows, replay, warp_max
+
+    entry = library().bp_line_polytope_f32
+    rows_out = []
+    for fold, args in kernel_b_cases(rng, dev, real):
+        count, rows = args[0].shape[0], args[0].shape[1]
+        out_k = line_polytope_projection(*args)
+        out_p = line_polytope_projection_plain(*args)
         torch.cuda.synchronize()
-        for t in (xk, phik, dk):
-            assert torch.isfinite(t).all(), "kernel B: non-finite output"
-        err = max((xk - xp).abs().amax().item(), (phik - phip).abs().amax().item(),
-                  (dk - dp).abs().amax().item())
+        same_pattern = all(torch.equal(torch.isfinite(u), torch.isfinite(v))
+                           for u, v in zip(out_k, out_p))
+        finite_k = (torch.isfinite(out_k[0]).all(dim=-1) & torch.isfinite(out_k[1])
+                    & torch.isfinite(out_k[2])).tolist()
+        err = max(float(torch.where(torch.isfinite(u) & torch.isfinite(v), u - v, 0.0)
+                        .abs().amax()) for u, v in zip(out_k, out_p))
         ms = cuda_ms(lambda: line_polytope_projection(*args), 50)
+        launch_only_ms = kernel_b_launch_only_ms(entry, args, 50)
         plain_ms = cuda_ms(lambda: line_polytope_projection_plain(*args), 5)
-        rows = args[0].shape[1]
-        bytes_moved = sum(t.numel() * t.element_size() for t in (*args, xk, phik, dk))
-        ops = count * (rows * B_OPS_SETUP_ROW + B_OPS_SETUP
-                       + (1 + OUTER_ITERS) * DYKSTRA_SWEEPS * rows * B_OPS_ROW
-                       + OUTER_ITERS * (B_OPS_PHI + B_OPS_POINT) + B_OPS_PHI + B_OPS_DIST)
-        bound_ms, bound_by = bound(bytes_moved, ops, "float32")
+        bytes_moved = sum(t.numel() * t.element_size() for t in (*args, *out_k))
+        kept = int(kept_rows(args[0], args[1]).sum())
+        # the row corrections of each warp's slowest problem, replayed on
+        # the host in numpy (no FMA contraction: the plain version's rounding)
+        warps = warp_max(replay(*(t.cpu().numpy() for t in args))[2]["chain"])
+        per_problem = (B_OPS_SETUP + OUTER_ITERS * (B_OPS_PHI + B_OPS_POINT) + B_OPS_PHI
+                       + B_OPS_DIST)
+        per_row = B_OPS_SETUP_ROW + (1 + OUTER_ITERS) * DYKSTRA_SWEEPS * B_OPS_ROW
+        bound_ms, bound_by = bound(bytes_moved, count * per_problem + kept * per_row, "float32")
+        bound_all, _ = bound(bytes_moved, count * (per_problem + rows * per_row), "float32")
         row = {"phase": "kernel_b", "fold": fold, "problems": count, "rows": rows,
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "roofline_share": bound_ms / ms, "library_ms": None}
+               "kept_rows": kept, "chain_warp_max_mean": float(warps.mean()),
+               "chain_warp_max_max": int(warps.max()),
+               "max_abs_err": err, "same_finite_pattern": same_pattern,
+               "ms": ms, "launch_only_ms": launch_only_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bound_ms_all_rows": bound_all,
+               "roofline_share": bound_ms / ms, "library_ms": None}
         emit(row)
+        assert same_pattern, f"kernel B's finite pattern differs from plain ({fold})"
+        assert finite_k == (EDGE_FINITE if fold == "edge" else [True] * count), \
+            f"kernel B: {finite_k.count(False)} non-finite problems ({fold})"
         # same f32 arithmetic up to FMA contraction in the kernel's sums
         assert err < 1e-4, f"kernel B disagrees with plain ({fold}, P={count}): {err}"
         rows_out.append(row)
     return rows_out
+
+
+def phase_compare_kernel_b(rng, dev, real, source, out_dir):
+    """Kernel B of ``source`` against this tree's, in turns (source, this,
+    this, source) at kernel B's folds: the wrapper's time, the bare
+    launch's, and whether both give the same outputs by value."""
+    import ctypes
+    import torch
+    from boundplanner_tpu_torch.ops import _build, cuda_proj
+
+    so = os.path.join(_build.BUILD_DIR, "kernel_b_compare.so")
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so, source],
+                          capture_output=True, text=True)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "nvcc_compare.log"), "w") as f:
+            f.write(proc.stdout + proc.stderr)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    other = ctypes.CDLL(so)
+    other.bp_line_polytope_f32.argtypes = list(_build._SIGNATURES["bp_line_polytope_f32"])
+    other.bp_line_polytope_f32.restype = ctypes.c_int
+    libs = {"source": other, "this": _build.library()}
+    cases = kernel_b_cases(rng, dev, real)
+    outs = {}
+    try:
+        for turn, name in enumerate(("source", "this", "this", "source")):
+            cuda_proj.library = lambda lib=libs[name]: lib
+            for i, (fold, args) in enumerate(cases):
+                outs[name, i] = cuda_proj.line_polytope_projection(*args)
+                emit({"phase": "kernel_b_compare", "turn": turn, "tree": name, "fold": fold,
+                      "problems": args[0].shape[0],
+                      "ms": cuda_ms(lambda: cuda_proj.line_polytope_projection(*args), 50),
+                      "launch_only_ms": kernel_b_launch_only_ms(
+                          libs[name].bp_line_polytope_f32, args, 50)})
+    finally:
+        cuda_proj.library = _build.library
+    torch.cuda.synchronize()
+    # equal values and the same NaNs (-0 == +0)
+    equal = {f"{fold}:{args[0].shape[0]}": all(
+        bool(((u == v) | (u.isnan() & v.isnan())).all())
+        for u, v in zip(outs["this", i], outs["source", i]))
+        for i, (fold, args) in enumerate(cases)}
+    result = {"phase": "kernel_b_compare", "source": source, "equal_by_value": equal}
+    emit(result)
+    return result
 
 
 def phase_small_f64(payload, cfg, dev):
@@ -423,15 +575,18 @@ def phase_main(payload, cfg, dev):
 
 
 def phase_main_routes(payload, cfg, dev):
-    """The main path's fleet quality with kernel A's route swapped, in the
+    """The main path's fleet quality with a kernel's route swapped, in the
     same call: kernel A again (is the rollout repeatable?), its plain
-    version (the column-step order of the JAX package's off-TPU path), and
-    kernel A in f64 with L^{-1} rounded to f32 once. Shows whether the f32
-    fleet's success moves with the rounding of L^{-1} alone. Quality only:
-    these launches are not the main path's counts."""
+    version (the column-step order of the JAX package's off-TPU path),
+    kernel A in f64 with L^{-1} rounded to f32 once, and kernel B's plain
+    version (no FMA contraction). Shows whether the f32 fleet's success
+    moves with the rounding of L^{-1}, or of the link sets, alone. Quality
+    only: these launches are not the main path's counts."""
     import torch
     from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
-    from boundplanner_tpu_torch.ops import qp
+    from boundplanner_tpu_torch.ops import cuda_proj, qp
+    from boundplanner_tpu_torch.ops.cuda_proj import (line_polytope_projection,
+                                                      line_polytope_projection_plain)
     from boundplanner_tpu_torch.ops.linalg import kkt_inverse, kkt_inverse_plain
     from boundplanner_tpu_torch.parallel.batch import chunked_rollout
     from boundplanner_tpu_torch.parallel.fleet_cache import to_torch
@@ -439,12 +594,16 @@ def phase_main_routes(payload, cfg, dev):
     carry, q0, obs = to_torch((payload["carry"], payload["q0"], payload["obs"]),
                               dev, torch.float32)
     model = FleetMPC(cfg, device=dev, dtype=torch.float32)
-    routes = {"kernel_a_f32": kkt_inverse, "plain_f32": kkt_inverse_plain,
-              "kernel_a_f64": lambda k: kkt_inverse(k.double()).to(k.dtype)}
+    # route name -> (kernel A's route, kernel B's route)
+    routes = {"kernel_a_f32": (kkt_inverse, line_polytope_projection),
+              "plain_f32": (kkt_inverse_plain, line_polytope_projection),
+              "kernel_a_f64": (lambda k: kkt_inverse(k.double()).to(k.dtype),
+                               line_polytope_projection),
+              "plain_b_f32": (kkt_inverse, line_polytope_projection_plain)}
     row = {"phase": "main_path_routes"}
     try:
-        for name, route in routes.items():
-            qp.kkt_inverse = route
+        for name, (route_a, route_b) in routes.items():
+            qp.kkt_inverse, cuda_proj.line_polytope_projection = route_a, route_b
             t0 = time.perf_counter()
             _, recs = chunked_rollout(carry, q0, obs, model, N_TICKS, chunk=CHUNK)
             torch.cuda.synchronize()
@@ -453,7 +612,8 @@ def phase_main_routes(payload, cfg, dev):
                          "mean_phi_final": float(recs["phi"][:, -1].mean()),
                          "wall_s": time.perf_counter() - t0}
     finally:
-        qp.kkt_inverse = kkt_inverse
+        qp.kkt_inverse, cuda_proj.line_polytope_projection = (kkt_inverse,
+                                                              line_polytope_projection)
     emit(row)
     return row
 
@@ -645,9 +805,11 @@ def phase_planned_rollout(fleet, cfg, dev):
 
 
 def main(argv):
-    out_dir = None
+    out_dir = compare_b = None
     if "--out" in argv:
         out_dir = argv[argv.index("--out") + 1]
+    if "--compare-kernel-b" in argv:
+        compare_b = os.path.abspath(argv[argv.index("--compare-kernel-b") + 1])
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "boundplanner_tpu_torch")):
         print("chip_smoke: boundplanner_tpu_torch not found beside this script",
@@ -682,12 +844,17 @@ def main(argv):
     _build.library()
     emit({"phase": "build", "seconds": build_s, "library": os.path.relpath(path, root)})
 
-    rng = np.random.default_rng(0)
-    a = phase_kernel_a(rng, dev)
-    b_all = phase_kernel_b(rng, dev)
-    b = b_all[0]
     cfg = perf_mpc_params()
     payload = load(FLEET)
+    real = real_tick_batch(payload, cfg, dev)
+    if compare_b:
+        result = phase_compare_kernel_b(np.random.default_rng(0), dev, real, compare_b, out_dir)
+        return 0 if all(result["equal_by_value"].values()) else 1
+
+    rng = np.random.default_rng(0)
+    a = phase_kernel_a(rng, dev)
+    b_all = phase_kernel_b(rng, dev, real)
+    b = b_all[0]
     phase_small_f64(payload, cfg, dev)
     main_res = phase_main(payload, cfg, dev)
     routes = phase_main_routes(payload, cfg, dev)
@@ -714,10 +881,12 @@ def main(argv):
          "replaces": "boundplanner_tpu/ops/pallas_proj.py:95",
          "launches": main_res["launches"]["line_polytope"],
          "launches_plan_fleet": plan["launches"]["line_polytope"],
-         **summary(b),
+         **summary(b), "launch_only_ms": b["launch_only_ms"],
+         "bound_ms_all_rows": b["bound_ms_all_rows"],
          "library": None,
-         "shapes": [{"fold": r["fold"], "problems": r["problems"], **summary(r)}
-                    for r in b_all]},
+         "shapes": [{"fold": r["fold"], "problems": r["problems"], **summary(r),
+                     "launch_only_ms": r["launch_only_ms"],
+                     "bound_ms_all_rows": r["bound_ms_all_rows"]} for r in b_all]},
     ]}
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)

@@ -13,8 +13,9 @@ pivot's update with one rounding (FMA), multiplies by the pivot's
 reciprocal, and sums the inverse's products in another order than the
 plain version). Non-PD batches: the same finite/non-finite flag per
 matrix, and the same values where the clamp keeps a matrix finite. float32 kernel B 1e-4
-absolute (FMA contraction in the kernel's dot products; Dykstra contracts,
-so the differences stay at a few ulps of the O(1) coordinates).
+absolute where finite, and the same non-finite entries (FMA contraction in
+the kernel's dot products; Dykstra contracts, so the differences stay at a
+few ulps of the O(1) coordinates).
 """
 
 import os
@@ -92,6 +93,37 @@ def planner_batch(rng, calls):
         p0.append(np.tile(s0, (len(arr.b), 1)))
         p1.append(np.tile(s1, (len(arr.b), 1)))
     return tuple(np.concatenate(x) for x in (a, b, p0, p1))
+
+
+def edge_batch():
+    """Five edge cases of kernel B's row rule and exits (those of
+    ``chip_smoke.py``), R = 8, a box in rows 0-5 unless said, rows 6-7
+    zero: 0 zero rows with b = -3 and -1e25 (no-ops, dropped; row 7 is
+    a = (-0, 0, -0)); 1 a zero row with b = -1e30 (kept: in float32
+    -b / 1e-12 overflows and inf * 0 gives NaN); 2 a NaN in p0; 3 an
+    all-zero problem (a = 0, b = 0, p0 = p1 = 0); 4 a segment through the
+    box (``test_torch_kernels.inside_case``)."""
+    eye = np.eye(3)
+    center, half = np.array([0.2, -0.1, 0.3]), np.array([0.15, 0.1, 0.2])
+    a = np.zeros((5, 8, 3))
+    b = np.full((5, 8), 10.0 - 0.001)
+    a[[0, 1, 2, 4], :6] = np.vstack([eye, -eye])
+    b[[0, 1, 2], :6] = np.concatenate([center + half, -(center - half)])
+    b[4, :6] = 0.5
+    b[0, 6:] = (-3.0, -1e25)
+    a[0, 7] = (-0.0, 0.0, -0.0)
+    b[1, 6] = -1e30
+    b[3] = 0.0
+    p0 = np.array([[1.0, 0.5, 0.9]] * 3 + [[0.0] * 3, [-1.0, 0.0, 0.0]])
+    p1 = np.array([[0.8, -0.6, 1.2]] * 3 + [[0.0] * 3, [1.0, 0.0, 0.0]])
+    p0[2, 0] = np.nan
+    return a, b, p0, p1
+
+
+# which edge problems end finite (x, phi and dist): in float64 the b = -1e30
+# row's t = 1e42 stays finite, so only the NaN in p0 spreads
+EDGE_FINITE = {"float32": [True, False, False, True, True],
+               "float64": [True, True, False, True, True]}
 
 
 @pytest.fixture
@@ -212,14 +244,18 @@ def test_cuda_concurrent_first_launch_builds_once(cuda_device, tmp_path, monkeyp
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("fold,count", [("tick", 12288), ("tick", 1),
-                                        ("planner", 16), ("planner", 1024)])
+                                        ("planner", 16), ("planner", 1024), ("edge", 5)])
 def test_cuda_line_polytope_matches_plain(cuda_device, fold, count):
-    """The tick's fold (scenes x links x obstacles) and the planner's
-    (16 obstacle slots per coalesced `find_set_line` call)."""
+    """The tick's fold (scenes x links x obstacles), the planner's (16
+    obstacle slots per coalesced `find_set_line` call) and the edge cases
+    of the kernel's row rule and exits: the same finite entries as the
+    plain version, and agreement where finite."""
     if fold == "tick":
         a, b, p0, p1 = tick_batch(np.random.default_rng(count), scenes=128, links=6)
-    else:
+    elif fold == "planner":
         a, b, p0, p1 = planner_batch(np.random.default_rng(count), count // 16)
+    else:
+        a, b, p0, p1 = edge_batch()
     args = [torch.from_numpy(np.ascontiguousarray(x[:count], dtype=np.float32)).to(cuda_device)
             for x in (a, b, p0, p1)]
     before = cuda_proj.line_polytope_projection.launches
@@ -227,8 +263,12 @@ def test_cuda_line_polytope_matches_plain(cuda_device, fold, count):
     assert cuda_proj.line_polytope_projection.launches == before + 1
     ref = cuda_proj.line_polytope_projection_plain(*args)
     torch.cuda.synchronize()
+    finite = torch.isfinite(ref[0]).all(dim=-1) & torch.isfinite(ref[1]) & torch.isfinite(ref[2])
+    assert finite.tolist() == (EDGE_FINITE["float32"] if fold == "edge" else [True] * count)
     for g, r in zip(got, ref):
-        assert (g - r).abs().max().item() <= 1e-4
+        assert torch.equal(torch.isfinite(g), torch.isfinite(r))
+        ok = torch.isfinite(r)
+        assert (g[ok] - r[ok]).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda

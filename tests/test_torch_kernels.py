@@ -7,7 +7,10 @@ Kernel A: ``ops.linalg.kkt_inverse`` (L^{-1} of SPD matrices) vs
 ``pallas_chol.cholesky_inverse(interpret=True, interleave=True)``, the
 schedule the JAX package runs, and vs its three other schedules.
 Kernel B: ``ops.cuda_proj.line_polytope_projection`` vs
-``pallas_proj.line_polytope_projection(interpret=True)``.
+``pallas_proj.line_polytope_projection(interpret=True)``, and a scalar
+emulation of the CUDA kernel's control flow (no-op rows dropped, exits at
+both fixed points) against the plain version by value: the shortcuts the
+kernel takes change no output.
 
 Tolerances: float64 1e-12 (same algorithm, summation order only). float32
 kernel A 2e-5 relative to max|L^{-1}|: the row-inverse sums run in another
@@ -27,7 +30,8 @@ from boundplanner_tpu.ops.pallas_chol import cholesky_inverse
 from boundplanner_tpu.ops import pallas_proj
 from boundplanner_tpu_torch.ops import cuda_proj
 from boundplanner_tpu_torch.ops.linalg import chol_inverse_smem, kkt_inverse, kkt_inverse_plain
-from test_torch_cuda import planner_batch, spd, tick_batch
+from boundplanner_tpu_torch.ops.proj_chain import replay
+from test_torch_cuda import EDGE_FINITE, edge_batch, planner_batch, spd, tick_batch
 
 torch.set_num_threads(1)
 
@@ -148,6 +152,7 @@ CASES = {
     "inside_segment": inside_case,
     "tick_fold": lambda: tick_batch(np.random.default_rng(3)),
     "planner_fold": lambda: planner_batch(np.random.default_rng(5), 2),
+    "edge_cases": edge_batch,
 }
 
 
@@ -162,6 +167,123 @@ def test_plain_line_polytope_matches_pallas(case, dtype):
     tol = 1e-12 if dtype == "float64" else 1e-5
     for j, t in ((xj, xt), (phij, phit), (dj, dt)):
         np.testing.assert_allclose(t, j, rtol=0, atol=tol)
+
+
+def kernel_b_emulation(a, b, p0, p1):
+    """Kernel B's control flow (``csrc/line_polytope.cu``), one problem at
+    a time in scalars of the inputs' dtype: the no-op zero rows dropped
+    (a = +-0, b NaN or >= -1e26), each Dykstra call stopped after its
+    first sweep that leaves y and every correction unchanged by value, the
+    outer loop stopped once an iteration returns its input by value. Each
+    kept row's arithmetic is the plain version's (sums left to right, IEEE
+    division, the kernel's clamp). Returns (x (P, 3), phi (P,), row
+    corrections per problem (P,))."""
+    dt = a.dtype.type
+    zero, one, floor = dt(0), dt(1), dt(1e-12)
+    dot = lambda u, v: (u[0] * v[0] + u[1] * v[1]) + u[2] * v[2]
+    xs, phis, chains = [], [], []
+    for a_p, b_p, s0, s1 in zip(a, b, p0, p1):
+        rows = [(a_r, b_r) for a_r, b_r in zip(a_p, b_p)
+                if not (a_r[0] == 0 and a_r[1] == 0 and a_r[2] == 0 and not b_r < -1e26)]
+        norms = [n2 if n2 > floor else floor for n2 in (dot(a_r, a_r) for a_r, _ in rows)]
+        d = [s1[i] - s0[i] for i in range(3)]
+        dd = dot(d, d)
+        denom = dd if dd > floor else floor
+        chain = 0
+
+        def dykstra(y):
+            nonlocal chain
+            e = [[zero] * 3 for _ in rows]
+            for _ in range(cuda_proj.DYKSTRA_SWEEPS):
+                before, same = list(y), True
+                for k, ((a_r, b_r), n2) in enumerate(zip(rows, norms)):
+                    w = [y[i] + e[k][i] for i in range(3)]
+                    viol = (dot(a_r, w) - b_r) / n2
+                    t = viol if viol > zero else zero
+                    s = [t * a_r[i] for i in range(3)]
+                    same = same and all(s[i] == e[k][i] for i in range(3))
+                    e[k] = s
+                    y = [w[i] - s[i] for i in range(3)]
+                    chain += 1
+                if same and all(y[i] == before[i] for i in range(3)):
+                    break
+            return y
+
+        def seg_phi(x):
+            phi = dot([x[i] - s0[i] for i in range(3)], d) / denom
+            return zero if phi < zero else (one if phi > one else phi)
+
+        x = dykstra(list(s0))
+        for _ in range(cuda_proj.OUTER_ITERS):
+            phi = seg_phi(x)
+            z = dykstra([s0[i] + phi * d[i] for i in range(3)])
+            fixed = all(z[i] == x[i] for i in range(3))
+            x = z
+            if fixed:
+                break
+        xs.append(x)
+        phis.append(seg_phi(x))
+        chains.append(chain)
+    return np.array(xs, dtype=dt), np.array(phis, dtype=dt), np.array(chains)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kernel_b_shortcuts_equal_plain_by_value(case, dtype):
+    """Dropping the no-op rows and stopping at both fixed points changes
+    no output by value: the emulation of kernel B's control flow gives the
+    plain version's x, phi and dist (same NaNs), while it runs fewer row
+    corrections than the full 11 x 4 x R chain."""
+    args = [np.ascontiguousarray(x, dtype=dtype) for x in CASES[case]()]
+    with np.errstate(invalid="ignore", over="ignore"):
+        x, phi, chain = kernel_b_emulation(*args)
+    ta = [torch.from_numpy(t) for t in args]
+    xp, phip, dp = cuda_proj.line_polytope_projection_plain(*ta)
+    seg = ta[2] + torch.from_numpy(phi)[:, None] * (ta[3] - ta[2])
+    dist = torch.linalg.vector_norm(torch.from_numpy(x) - seg, dim=-1)   # the plain's norm
+    np.testing.assert_array_equal(x, xp.numpy())
+    np.testing.assert_array_equal(phi, phip.numpy())
+    np.testing.assert_array_equal(dist.numpy(), dp.numpy())
+    count, rows = args[1].shape
+    assert chain.sum() < (1 + cuda_proj.OUTER_ITERS) * cuda_proj.DYKSTRA_SWEEPS * rows * count
+    if case == "edge_cases":
+        finite = np.isfinite(x).all(axis=1) & np.isfinite(phi) & np.isfinite(dist.numpy())
+        assert finite.tolist() == EDGE_FINITE[dtype]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_proj_chain_replay_matches_emulation(case, dtype):
+    """``ops.proj_chain.replay`` (vectorized, used to count the chain on a
+    fleet's tick) runs the same control flow as the scalar emulation: the
+    same x and phi by value and the same row corrections per problem."""
+    args = [np.ascontiguousarray(x, dtype=dtype) for x in CASES[case]()]
+    with np.errstate(invalid="ignore", over="ignore"):
+        x, phi, chain = kernel_b_emulation(*args)
+    xr, phir, counts = replay(*args)
+    np.testing.assert_array_equal(xr, x)
+    np.testing.assert_array_equal(phir, phi)
+    np.testing.assert_array_equal(counts["chain"], chain)
+
+
+def test_zero_row_with_huge_negative_b_gives_nan():
+    """A zero row with b = -1e30 is no no-op in float32: -b / 1e-12
+    overflows to inf and inf * 0 is NaN, in the Pallas kernel, the plain
+    version and the kernel's control flow alike (the kernel keeps the
+    row). At b = -1e25 the same row changes nothing."""
+    a, b, p0, p1 = (np.ascontiguousarray(x[:2], dtype=np.float32) for x in edge_batch())
+    b[0, 6] = -1e25                       # problem 0: the same rows at b = -1e25
+    a[0, 7], b[0, 7] = 0.0, 10.0
+    b[1, 6] = -1e30
+    xj, phij, dj = (np.asarray(t) for t in pallas_proj.line_polytope_projection(
+        *map(jnp.asarray, (a, b, p0, p1)), interpret=True))
+    xt, phit, dt = (t.numpy() for t in cuda_proj.line_polytope_projection_plain(
+        *map(torch.from_numpy, (a, b, p0, p1))))
+    with np.errstate(invalid="ignore", over="ignore"):
+        xe, phie, _ = kernel_b_emulation(a, b, p0, p1)
+    for out in ((xj, phij, dj), (xt, phit, dt), (xe, phie)):
+        assert all(np.isfinite(o[0]).all() for o in out)
+        assert all(np.isnan(o[1]).all() for o in out)
 
 
 def test_seg_poly_closest_f64_matches_jax_ipm():
