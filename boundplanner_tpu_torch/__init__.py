@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of ``boundplanner_tpu`` (closed-loop fleet MPC slice).
+"""PyTorch + CUDA port of ``boundplanner_tpu``: the closed-loop fleet MPC,
+the fleet planner and the single-arm runtime (``mpc.MPCNode``).
 
 Module paths and function names mirror the JAX package so each function's
 counterpart is easy to find. The JAX package stays the reference; this
@@ -7,7 +8,7 @@ keeps its own copies of what it needs (``config``, ``native_geom``).
 Its entry points run on the card unless the caller passes
 ``device="cpu"``.
 
-The two Pallas TPU kernels of the main path are hand-written CUDA kernels
+The two Pallas TPU kernels of the port's paths are hand-written CUDA kernels
 for Hopper (``csrc/``), built with ``nvcc`` at first use and loaded with
 ``ctypes`` (``ops/_build.py``):
 

@@ -1,0 +1,4 @@
+from .bound_mpc import BoundMPC
+from .node import MPCNode
+
+__all__ = ["BoundMPC", "MPCNode"]

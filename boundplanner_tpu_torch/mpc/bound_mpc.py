@@ -1,6 +1,5 @@
-"""BoundMPC fused tick for a fleet of scenes
-(port of ``MPCCarry``, ``init_carry``, ``_win_with_proj``,
-``build_tick_params`` and ``mpc_tick`` of ``boundplanner_tpu/mpc/bound_mpc.py``).
+"""BoundMPC fused tick for a fleet of scenes, and the single-arm host
+class (port of ``boundplanner_tpu/mpc/bound_mpc.py``).
 
 One call of ``mpc_tick`` is one control period for every scene of the
 batch: window advance -> rotation errors and projection vectors -> link
@@ -12,11 +11,14 @@ with via-point snap correction -> carry update. Everything is batch-major
 
 ``FleetMPC(cfg, device=, dtype=)`` holds the tick's static tensors
 (`ocp_struct.OCPStruct`) as buffers on the card in float32 unless asked
-otherwise; ``.to(device, dtype)`` moves them.
+otherwise; ``.to(device, dtype)`` moves them. ``BoundMPC`` is the
+reference's single-scene API (``__init__``/``update``/``step``) over a
+``FleetMPC`` at batch 1, in float64 on the card by default.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -28,15 +30,18 @@ from ..config import MPCParams
 from ..path import ref_fns
 from ..path.reference_path import (
     PathState,
+    build_path,
     path_advance,
     path_apply_via_correction,
     path_window,
     take,
 )
-from ..planner.set_finder import ObstacleArrays
+from ..planner.set_finder import ObstacleArrays, build_obstacle_arrays
+from ..robot import kinematics as kin
 from ..robot.model import U_MAX
 from ..utils import so3
 from ..utils.device import DEFAULT_DEVICE, checked_device
+from ..utils.tree import to_numpy, to_torch, tree_map
 from . import ocp, ocp_struct, prep
 from .solver import check_supported, solve_sqp
 
@@ -457,7 +462,8 @@ class FleetMPC(nn.Module):
         check_supported(cfg)
         device = checked_device(device)
         self.cfg = cfg
-        self.st = ocp_struct.build(cfg.n, cfg.dt, cfg.robot, cfg.struct_chunked)
+        self.st = ocp_struct.build(cfg.n, cfg.dt, cfg.robot,
+                                   cfg.struct_ocp and cfg.struct_chunked)
         self.to(device, dtype)
 
     @torch.no_grad()
@@ -465,3 +471,168 @@ class FleetMPC(nn.Module):
         return mpc_tick(carry, meas, obs, self.cfg, self.st)
 
     forward = tick
+
+
+def _cartesian_acc(q, dq, ddq, chain):
+    """True Cartesian acceleration a = J(q) ddq + dJ(q, dq) dq over a
+    horizon of joint states (n, 7) -> (n, 6)."""
+    j = kin.jacobian_fk(q, chain)
+    dj = kin.djacobian_fk(q, dq, chain)
+    return (j @ ddq[..., None] + dj @ dq[..., None])[..., 0]
+
+
+_WARM_FIELDS = ("x_prev", "has_prev", "prev_q", "prev_dq", "prev_ddq", "prev_u",
+                "prev_p", "prev_v", "prev_pslacks")
+
+
+class BoundMPC:
+    """The reference's single-scene API (``__init__``/``update``/``step``)
+    over one `FleetMPC` at batch 1. ``carry`` and ``obs`` hold one scene's
+    tensors on ``device`` (no scene axis, as in the JAX package); ``step``
+    takes and returns numpy."""
+
+    def __init__(
+        self,
+        pos_points,
+        rot_points,
+        bp1,
+        br1,
+        e_r_bound,
+        a_sets,
+        b_sets,
+        obstacles,
+        p0=np.zeros(6),
+        params: MPCParams | None = None,
+        device=DEFAULT_DEVICE,
+        dtype=torch.float64,
+        cartesian_acc: bool = False,
+    ):
+        self.cfg = params or MPCParams()
+        self.device = checked_device(device)
+        self.dtype = dtype
+        # opt-in: report the true Cartesian acceleration J ddq + dJ dq in
+        # traj_data["a"] instead of the reference's alias of the velocity
+        self.cartesian_acc = cartesian_acc
+        self.model = FleetMPC(self.cfg, device=self.device, dtype=dtype)
+        self.obs = self._on_device(build_obstacle_arrays(obstacles, size_increase=0.0))
+        path = build_path(
+            pos_points, rot_points, bp1, br1, e_r_bound, a_sets, b_sets,
+            nr_segs=self.cfg.nr_segs,
+        )
+        self.carry = self._on_device(init_carry(path, p0, self.cfg))
+        self.error_count = 0
+
+    def _on_device(self, tree):
+        return to_torch(tree, self.device, self.dtype)
+
+    @property
+    def phi_current(self):
+        return to_numpy(self.carry.phi_current).reshape(1)
+
+    @property
+    def phi_max(self):
+        return to_numpy(self.carry.path.phi_max).reshape(1)
+
+    @property
+    def dt(self):
+        return self.cfg.dt
+
+    def update(
+        self,
+        pos_points,
+        rot_points,
+        bp1,
+        br1,
+        e_r_bound,
+        a_sets,
+        b_sets,
+        obstacles,
+        v,
+        p0=np.zeros(6),
+        params: MPCParams | None = None,
+        warm_carry: bool = True,
+        spiral_blend: float = 0.0,
+        spiral_sub: int = 4,
+    ):
+        """Replanning hand-off: a new path, obstacles and phi re-initialized
+        by projecting ``p0`` onto the first segment. ``warm_carry`` keeps the
+        previous decision vector and accepted trajectory (the condensed
+        decision vector is the joint-space jerk sequence plus slacks, so it
+        stays a consistent warm start for the new path)."""
+        cfg = params or self.cfg
+        if warm_carry and cfg.n != self.cfg.n:
+            warm_carry = False  # decision-vector size changed
+        if cfg != self.cfg:
+            self.model = FleetMPC(cfg, device=self.device, dtype=self.dtype)
+        self.cfg = cfg
+        self.obs = self._on_device(build_obstacle_arrays(obstacles, size_increase=0.0))
+        path = build_path(
+            pos_points, rot_points, bp1, br1, e_r_bound, a_sets, b_sets,
+            nr_segs=cfg.nr_segs, spiral_blend=spiral_blend, spiral_sub=spiral_sub,
+        )
+        carry = self._on_device(init_carry(path, p0, cfg))
+        if warm_carry:
+            carry = carry._replace(**{f: getattr(self.carry, f) for f in _WARM_FIELDS})
+
+        # phi re-initialization by projection onto the first segment
+        p_via0 = np.asarray(pos_points[0], dtype=np.float64)
+        dp0 = np.asarray(pos_points[1], dtype=np.float64) - p_via0
+        dp0 = dp0 / np.linalg.norm(dp0)
+        phi0 = float((np.asarray(p0[:3]) - p_via0) @ dp0)
+        dphi0 = float(np.asarray(v[:3]) @ dp0)
+        f64 = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), device=self.device)
+        pr_ref = prep.integrate_rotation_reference(
+            so3.matrix_to_rotvec(f64(rot_points[0])), f64(path.dr[0]), f64(0.0), f64(phi0)
+        )
+        iw_ref = path.iw[0] + phi0 * path.dr[0]
+        self.carry = carry._replace(
+            phi_current=self._on_device(np.asarray(phi0)),
+            dphi_current=self._on_device(np.asarray(dphi0)),
+            pr_ref=pr_ref.to(self.dtype),
+            iw_ref=self._on_device(iw_ref),
+        )
+        self.error_count = 0
+
+    def step(self, q0, dq0, ddq0, p0, v0, jerk_current, qf=None):
+        """One optimization step. Returns (traj_data, ref_data, err_data,
+        t_solve, sqp_iters): numpy, horizon-major arrays transposed as in
+        the reference; ``t_solve`` in seconds, read after the card has
+        finished."""
+        if qf is None:
+            qf = q0
+        meas = {key: self._on_device(np.asarray(val, dtype=np.float64)[None])
+                for key, val in (("q0", q0), ("dq0", dq0), ("ddq0", ddq0), ("p0", p0),
+                                 ("v0", v0), ("u0", jerk_current), ("qf", qf))}
+        one = lambda t: t[None]
+        t0 = time.perf_counter()
+        carry_b, out_b = self.model.tick(tree_map(one, self.carry), meas,
+                                         tree_map(one, self.obs))
+        out_t = tree_map(lambda t: t[0], out_b)
+        out = to_numpy(out_t)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t_solve = time.perf_counter() - t0
+        self.carry = tree_map(lambda t: t[0], carry_b)
+        self.error_count = int(to_numpy(self.carry.error_count))
+        self.last_cost = float(out["cost"])
+        self.last_viol = float(out["viol"])
+
+        if self.cartesian_acc:
+            acc = to_numpy(_cartesian_acc(out_t["q"][1:], out_t["dq"][1:], out_t["ddq"][1:],
+                                          self.model.st.chain)).T
+        else:
+            acc = out["v"][1:].T  # the reference aliases acc to vel
+        traj_data = {
+            "q": out["q"][1:].T,
+            "dq": out["dq"][1:].T,
+            "ddq": out["ddq"][1:].T,
+            "dddq": out["dddq"].T,
+            "p": out["p"][1:].T,
+            "v": out["v"][1:].T,
+            "a": acc,
+            "phi": out["phi"][1:],
+            "dphi": out["dphi"][1:],
+        }
+        ref_data = {"p": out["p_ref"], "success": bool(out["success"])}
+        err_data = {"e_p": out["e_p"], "e_r": out["e_r"], "e_rs": out["e_rs"]}
+        return traj_data, ref_data, err_data, t_solve, int(out["sqp_iters"])

@@ -1,13 +1,15 @@
-"""Structured chain-rule Jacobians of the condensed OCP
-(port of the structured path of ``boundplanner_tpu/mpc/ocp_jac.py``).
+"""Chain-rule Jacobians of the condensed OCP
+(port of ``evaluate_with_jac`` and ``evaluate_with_jac_structured`` of
+``boundplanner_tpu/mpc/ocp_jac.py``).
 
 q/dq/ddq/u and the slack trajectories are affine in x with static
 sensitivity matrices (numpy, built once per (n, dt) and held as buffers
 by `ocp_struct.OCPStruct`). The FK quantities are differentiated per step
-with respect to q_k only (7 tangents), the reference/error math with
-respect to the step's pose and twist (12 tangents), both by
-``torch.func.jacfwd`` vmapped over the horizon. One scene per call, as in
-the JAX package; callers vmap over scenes.
+with respect to q_k only (7 tangents). The reference/error math is
+differentiated with respect to all 61 packed local inputs of a step (the
+dense route) or only the step's pose and twist (12 tangents, the
+structured route), by ``torch.func.jacfwd`` vmapped over the horizon.
+One scene per call, as in the JAX package; callers vmap over scenes.
 """
 
 from __future__ import annotations
@@ -102,6 +104,84 @@ def _fk_bundle(q, dq, chain):
     )
 
 
+def _fk_jacobians(traj, chain, dtype):
+    """The FK bundle's q-derivatives per step (7 tangents) and the EE
+    Jacobians at steps 1..N-1: (n-1, 3, 7), (n-1, 6, 7), (n-1, 6, 3, 7),
+    (n-1, 6, 7)."""
+    ap, hv, acol = vmap(jacfwd(lambda q, dq: _fk_bundle(q, dq, chain), argnums=0))(
+        traj["q"][1:], traj["dq"][1:]
+    )
+    jacs = kin.jacobian_fk(traj["q"][1:], chain)
+    return ap.to(dtype), hv.to(dtype), acol.to(dtype), jacs
+
+
+def evaluate_with_jac(x, params, cfg: MPCParams, st):
+    """(residuals, constraints, J_residuals, J_constraints) of one scene
+    with the values and row order of `ocp.evaluate` and its forward-mode
+    Jacobian: the dense route of ``manual_jac=True``."""
+    n = cfg.n
+    nx = ocp.n_vars(n)
+    dtype = x.dtype
+    w = params["weights"]
+    chain = st.chain
+
+    traj = ocp.rollout(x, params, cfg, st)
+    zs = ocp.local_inputs(traj, n, chain)
+    ks = torch.arange(1, n, device=x.device)
+
+    # values + per-step local Jacobians (61 tangents, vmapped)
+    step = lambda k, z: ocp._step_local(k, z, params, cfg)
+    r_steps, g_steps = vmap(step)(ks, zs)
+    jr_z, jg_z = vmap(jacfwd(step, argnums=1))(ks, zs)    # (n-1, 40, 61), (n-1, 112, 61)
+    jr_z, jg_z = jr_z.to(dtype), jg_z.to(dtype)
+
+    ap, hv, acol, jacs = _fk_jacobians(traj, chain, dtype)
+    dq_r = st.sens_dq[1:]                        # (n-1, 7, nx)
+    ddq_r = st.sens_ddq[1:]
+    du_r = st.sens_du[1:]
+    dv = torch.einsum("kij,kjx->kix", hv, dq_r) + torch.einsum(
+        "kij,kjx->kix", jacs, ddq_r
+    )                                           # (n-1, 6, nx)
+    diw = torch.einsum("kj,jax->kax", st.sens_w_trap[1:], dv[:, 3:, :])
+    dp = torch.cat([torch.einsum("kij,kjx->kix", ap, dq_r), diw], dim=1)
+    dpcol = torch.einsum("klij,kjx->klix", acol, dq_r).reshape(n - 1, 18, nx)
+
+    ddsl = st.sens_ddsl
+    one = lambda a: a[1:, None, :]              # (n-1, 1, nx)
+    dz = torch.cat(
+        [
+            dq_r, ddq_r, du_r, dp, dv,
+            one(st.sens_drs_traj), one(st.sens_ddrs),
+            one(st.sens_dps_traj), one(st.sens_ddps),
+            ddsl.expand(n - 1, 6, nx), dpcol,
+        ],
+        dim=1,
+    )                                           # (n-1, N_Z, nx)
+    jr_steps = torch.einsum("krz,kzx->krx", jr_z, dz).reshape(-1, nx)
+    jg_steps = torch.einsum("krz,kzx->krx", jg_z, dz).reshape(-1, nx)
+
+    # terminal rows
+    g_term = ocp._terminal_local(zs[-1], params, cfg)
+    jg_term = jacfwd(lambda zz: ocp._terminal_local(zz, params, cfg))(zs[-1]).to(dtype)
+    jg_term = jg_term @ dz[-1]
+
+    slacks = params["slacks0"] + traj["dslacks"]
+    r_term = ocp.terminal_residuals(slacks, traj["dslacks"], traj["v"][n - 1], w)
+    jr_term = torch.cat(
+        [
+            torch.sqrt(w[8]) * ddsl[[0, 1, 2, 3, 5]],
+            torch.sqrt(w[10]) * ddsl,
+            10.0 * dv[-1],
+        ]
+    )
+
+    residuals = torch.cat([r_steps.reshape(-1), r_term])
+    constraints = torch.cat([g_steps.reshape(-1), g_term, st.tail_values(traj)])
+    j_res = torch.cat([jr_steps, jr_term])
+    j_con = torch.cat([jg_steps, jg_term, st.tail_rows])
+    return residuals, constraints, j_res, j_con
+
+
 def _step_nl(k, p, v, params, cfg: MPCParams):
     """The (p, v)-dependent parts of `ocp._step_local`'s rows with the
     x-affine slack addends omitted: r_nl (26,), g_nl (22,)."""
@@ -148,11 +228,7 @@ def evaluate_with_jac_structured(x, params, cfg: MPCParams, st):
     jr_pv, jg_pv = jr_pv.to(dtype), jg_pv.to(dtype)
 
     # FK derivative bundles: 7 tangents per step
-    ap, hv, acol = vmap(jacfwd(lambda q, dq: _fk_bundle(q, dq, chain), argnums=0))(
-        traj["q"][1:], traj["dq"][1:]
-    )                                           # (n-1, 3, 7), (n-1, 6, 7), (n-1, 6, 3, 7)
-    ap, hv, acol = ap.to(dtype), hv.to(dtype), acol.to(dtype)
-    jacs = kin.jacobian_fk(traj["q"][1:], chain)  # (n-1, 6, 7)
+    ap, hv, acol, jacs = _fk_jacobians(traj, chain, dtype)
 
     dq_r = st.sens_dq[1:]                        # (n-1, 7, nx)
     ddq_r = st.sens_ddq[1:]

@@ -20,10 +20,11 @@ import torch
 from torch import nn
 
 from ..config import MPC_SET_ROWS, NUM_LINK_SETS
+from ..ops.qp import dense_gram
 from ..robot.kinematics import Chain
 from ..robot.model import DDQ_LIM, U_MAX, U_MIN, ocp_limits
 from . import ocp
-from .ocp_jac import _static_sensitivities
+from .ocp_jac import _static_bound_rows, _static_sensitivities
 
 NJ = ocp.NJ
 
@@ -62,6 +63,8 @@ class OCPStruct(nn.Module):
         buf("b_slack", b_slack)            # (6 + 4n, 38)
         for key, val in s.items():         # static sensitivities of ocp_jac
             buf("sens_" + key, val)
+        # the tail's rows as a dense block, for the dense chain rule
+        buf("tail_rows", _static_bound_rows(n, dt))   # (m_tail, nx)
         q_ub, q_lb, dq_lim, col_sizes = ocp_limits(robot)
         buf("q_ub", q_ub)
         buf("q_lb", q_lb)
@@ -141,12 +144,11 @@ class OCPStruct(nn.Module):
     # ---- runtime Grams (flat: one full-width product each) ---------------
 
     def gram_g(self, g_run, w, lowp: bool = False):
-        """G_run^T diag(w) G_run. ``lowp`` rounds the operands (and the
-        weighted copy) to bfloat16 and accumulates in float32."""
+        """G_run^T diag(w) G_run; ``lowp``: the bf16 Gram of
+        `ops.qp.dense_gram` (G and w rounded to bfloat16, the rest in
+        float32, as the JAX package's jitted Gram)."""
         if lowp:
-            m16 = g_run.to(torch.bfloat16)
-            mw = m16 * w[..., None].to(torch.bfloat16)
-            return m16.to(g_run.dtype).mT @ mw.to(g_run.dtype)
+            return dense_gram(g_run, w, lowp=True)
         return g_run.mT @ (g_run * w[..., None])
 
     def gram_r(self, j_res):
@@ -155,6 +157,8 @@ class OCPStruct(nn.Module):
 
 
 def build(n: int, dt: float, robot: str = "iiwa14", chunked: bool = False) -> OCPStruct:
+    """The flat structure; the dense routes (``struct_ocp=False``) build it
+    too, for the chain, the limits and ``tail_values``."""
     if chunked:
         raise NotImplementedError("struct_chunked=True is not ported (flat mode only)")
     return OCPStruct(n, dt, robot)

@@ -9,9 +9,9 @@ Problem form, one per row of the leading batch axis B::
 
 Iteration is a fixed-trip loop with a per-problem ``done`` mask (no host
 sync inside), so a batch stays in lockstep like the JAX ``fori_loop``.
-Only the branches the MPC's configuration reaches are ported: the plain
+Only the branches the MPC's configurations reach are ported: the plain
 dense form, the structured static tail (``struct``), the bfloat16 search
-directions (``lowp``, ``lowp_rd``) and Gondzio correctors. The KKT
+directions and Grams (``lowp``, ``lowp_rd``) and Gondzio correctors. The KKT
 factorization always goes through ``ops.linalg.kkt_inverse``, which picks
 kernel A or its plain version by device.
 """
@@ -50,6 +50,18 @@ def _bf16(t):
     """Round to bfloat16 and widen back: the operand of a bf16 product
     with f32 accumulation (JAX's ``preferred_element_type=float32``)."""
     return t.to(torch.bfloat16).to(t.dtype)
+
+
+def dense_gram(g_mat, w, lowp: bool = False):
+    """G^T diag(w) G for a batch: g_mat (B, m, n), w (B, m). ``lowp``: G
+    and w rounded to bfloat16, the rest in float32. That is what the JAX
+    package's jitted ``g16 * w.astype(bf16)`` computes: XLA fuses the
+    product into float32 and never rounds it back to bfloat16 (excess
+    precision; only eager JAX rounds it)."""
+    if lowp:
+        g16 = _bf16(g_mat)
+        return g16.mT @ (g16 * _bf16(w)[..., None])
+    return (g_mat.mT * w[..., None, :]) @ g_mat
 
 
 def solve_qp(
@@ -133,10 +145,7 @@ def solve_qp(
                 + reg * eye_n
                 + struct.tail_gram(w[..., m_run:])
             )
-        if lowp:
-            gw = (g_dir.to(torch.bfloat16) * w[..., None].to(torch.bfloat16)).to(dtype)
-            return p_mat + g_dir_t @ gw + reg * eye_n
-        return p_mat + (g_mat_t * w[..., None, :]) @ g_mat + reg * eye_n
+        return p_mat + dense_gram(g_mat, w, lowp) + reg * eye_n
 
     tiny = torch.finfo(dtype).tiny
     r_p = gmv_exact(x) + s - h_vec

@@ -1,7 +1,7 @@
 """Batched Gauss-Newton SQP over the dense QP-IPM
 (port of ``boundplanner_tpu/ops/sqp.py``: the generic branch, whose
-Jacobian is forward-mode AD of the evaluation, and the structured branch
-of the MPC).
+Jacobian is forward-mode AD of the evaluation, the manual-Jacobian dense
+branch and the structured branch of the MPC).
 
 Problem form per scene:  min |r(x)|^2  s.t.  g(x) <= 0. Fixed-trip
 iteration with per-scene ``done`` masks keeps the batch in lockstep (no
@@ -82,13 +82,15 @@ def gauss_newton_sqp(
 
     Without ``eval_jac_fn`` (the generic branch) the Jacobians come from
     forward-mode AD of ``eval_fn`` (:func:`jac_fwd`) and the QP is dense.
-    With it (the MPC's structured branch), ``eval_jac_fn``: x (B, nx) ->
-    (r, g, J_r, J_g_runtime) with the values of ``eval_fn``, and the static
-    constraint tail of ``struct`` (`mpc.ocp_struct.OCPStruct`) is applied
+    With it, ``eval_jac_fn``: x (B, nx) -> (r, g, J_r, J_g) with the values
+    of ``eval_fn``. Without ``struct`` (e.g. `mpc.ocp_jac.evaluate_with_jac`)
+    J_g covers every row and the QP is dense; with ``struct``
+    (`mpc.ocp_struct.OCPStruct`, the MPC's structured branch) J_g covers the
+    runtime rows only and the static constraint tail is applied
     structurally inside the QP."""
-    if (eval_jac_fn is None) != (struct is None):
-        raise NotImplementedError("eval_jac_fn and struct come together (structured branch)")
-    if struct is None:
+    if struct is not None and eval_jac_fn is None:
+        raise ValueError("struct needs a matching eval_jac_fn (structured branch)")
+    if eval_jac_fn is None:
         eval_fn = _locked(eval_fn)
     dtype, dev = x0.dtype, x0.device
     bsz, n_x = x0.shape
@@ -110,9 +112,12 @@ def gauss_newton_sqp(
 
     for _ in range(iters):
         if struct is None:
-            r, g = (t[:, 0] for t in eval_fn(x[:, None]))
-            with _TRANSFORMS:
-                jr, jg = jac_fwd(eval_fn, x)
+            if eval_jac_fn is None:
+                r, g = (t[:, 0] for t in eval_fn(x[:, None]))
+                with _TRANSFORMS:
+                    jr, jg = jac_fwd(eval_fn, x)
+            else:
+                r, g, jr, jg = eval_jac_fn(x)
             grad = 2.0 * (jr.mT @ r[..., None])[..., 0]
             hess = 2.0 * jr.mT @ jr + lam[:, None, None] * eye
             qp = solve_qp(hess, grad, jg, -g, iters=qp_iters, tol=1e-10,

@@ -1,5 +1,5 @@
-"""Closed-loop fleet rollout (port of ``_plant_measurement``,
-``fleet_rollout`` and ``chunked_rollout`` of
+"""Closed-loop rollouts (port of ``_plant_measurement``,
+``closed_loop_rollout``, ``fleet_rollout`` and ``chunked_rollout`` of
 ``boundplanner_tpu/parallel/batch.py``).
 
 The JAX package's ``lax.scan`` over ticks becomes a Python loop with a
@@ -16,6 +16,7 @@ from ..mpc.bound_mpc import FleetMPC, MPCCarry
 from ..planner.set_finder import ObstacleArrays
 from ..robot import kinematics as kin
 from ..utils.integration import integrate_jerk_step
+from ..utils.tree import tree_map
 
 
 def _plant_measurement(q, dq, ddq, jerk, qf, chain):
@@ -60,6 +61,18 @@ def fleet_rollout(carry_b: MPCCarry, q0_b, obs_b: ObstacleArrays,
         q, jerk, qf = q_n, u1, out["q"][:, -1]
     records = {k: torch.stack([r[k] for r in recs], dim=1) for k in recs[0]}
     return carry, records
+
+
+def closed_loop_rollout(carry: MPCCarry, q0, obs: ObstacleArrays,
+                        model: FleetMPC, n_ticks: int):
+    """Closed-loop rollout of ONE scene (leaves without a scene axis), as a
+    batch of one through :func:`fleet_rollout`. Returns (final carry,
+    records with leaves (n_ticks, ...))."""
+    add = lambda t: t[None]
+    final, recs = fleet_rollout(tree_map(add, carry), q0[None], tree_map(add, obs),
+                                model, n_ticks)
+    drop = lambda t: t[0]
+    return tree_map(drop, final), tree_map(drop, recs)
 
 
 def _slice(tree, lo, hi):

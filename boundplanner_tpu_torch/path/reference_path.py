@@ -78,9 +78,16 @@ def build_path(
     numpy in, a ``PathState`` with numpy leaves out (stack scenes and
     convert with `parallel.fleet_cache.to_torch`).
 
-    ``spiral_blend > 0`` (euler-spiral corner blending) is not ported."""
+    ``spiral_blend > 0`` blends each interior corner with an euler spiral
+    of that half-arc length: ``spiral_sub`` sub-segments sampled on the
+    clothoid replace the corner (`euler_spiral.blend_corners`)."""
     if spiral_blend > 0.0:
-        raise NotImplementedError("build_path: spiral_blend > 0 (euler spiral) is not ported")
+        from .euler_spiral import blend_corners
+
+        (p_via, r_via, bp1, br1, e_r_bound, a_sets, b_sets) = blend_corners(
+            p_via, r_via, bp1, br1, e_r_bound, a_sets, b_sets,
+            length=spiral_blend, n_sub=spiral_sub,
+        )
     p_list = [np.asarray(x, dtype=dtype) for x in p_via]
     r_list = [np.asarray(x, dtype=dtype) for x in r_via]
     l_traj = len(p_list)

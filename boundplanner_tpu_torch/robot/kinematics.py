@@ -8,7 +8,10 @@ Every function takes ``q`` with arbitrary leading batch dimensions
 ``(..., 7)`` and is safe under ``torch.func.vmap``/``jacfwd``.
 
 The frame Jacobian follows Pinocchio's LOCAL_WORLD_ALIGNED convention:
-column i is ``[z_i x (p_ee - p_i); z_i]``.
+column i is ``[z_i x (p_ee - p_i); z_i]``; its time derivative is a jvp
+of the Jacobian map (``djacobian_fk``). Every function takes the chain:
+unlike the JAX package, whose ``djacobian_fk``/``velocity_ee``/
+``omega_ee`` always use the iiwa14 chain, the gen3 gets its own.
 """
 
 from __future__ import annotations
@@ -194,3 +197,52 @@ def jacobian_of_frames(f):
 def jacobian_fk(q, chain: Chain):
     """(..., 6, 7) LOCAL_WORLD_ALIGNED EE Jacobian: rows [linear; angular]."""
     return jacobian_of_frames(fk_frames(q, chain))
+
+
+def fk_ee_htm(q, chain: Chain):
+    """(..., 4, 4) homogeneous transform of the end effector."""
+    f = fk_frames(q, chain)
+    top = torch.cat([f["r_ee"], f["p_ee"][..., None]], dim=-1)
+    bottom = torch.zeros(top.shape[:-2] + (1, 4), dtype=top.dtype, device=top.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def fk_pos(q, chain: Chain):
+    """(..., 3) end-effector position."""
+    return fk_frames(q, chain)["p_ee"]
+
+
+def fk_pos_col(q, i: int, chain: Chain):
+    """(..., 3) position of collision frame i (static index)."""
+    return fk_frames(q, chain)["p_col"][..., i, :]
+
+
+def jacobian_col(q, i: int, chain: Chain):
+    """3x7 positional Jacobian of collision frame i at one q (7,), by
+    forward-mode AD."""
+    return torch.func.jacfwd(lambda qq: fk_pos_col(qq, i, chain))(q)
+
+
+def djacobian_fk(q, dq, chain: Chain):
+    """(..., 6, 7) time derivative of the EE Jacobian, dJ/dt = (dJ/dq) dq,
+    exactly by a jvp. Takes the robot's own chain (the JAX package's
+    version always differentiates the iiwa14's)."""
+    dj = torch.func.jvp(lambda qq: jacobian_fk(qq, chain), (q,), (dq,))[1]
+    # the tangent of a 0-d tensor and a Python float comes out in float64
+    return dj.to(q.dtype)
+
+
+def velocity_ee(q, dq, chain: Chain):
+    """(..., 3) Cartesian EE velocity."""
+    return (jacobian_fk(q, chain) @ dq[..., None])[..., :3, 0]
+
+
+def omega_ee(q, dq, chain: Chain):
+    """(..., 3) EE angular velocity."""
+    return (jacobian_fk(q, chain) @ dq[..., None])[..., 3:, 0]
+
+
+def forward_kinematics(q, dq, chain: Chain):
+    """(pose6, J, dJ) of the EE."""
+    return fk_pose(q, chain), jacobian_fk(q, chain), djacobian_fk(q, dq, chain)

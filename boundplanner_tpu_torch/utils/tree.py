@@ -30,7 +30,8 @@ def to_torch(tree, device, dtype=torch.float32):
     type."""
     def conv(a):
         a = np.asarray(a)
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        # (ascontiguousarray makes 0-d arrays 1-d: keep the shape)
+        t = torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape))
         if t.is_floating_point():
             t = t.to(dtype)
         return t.to(device)

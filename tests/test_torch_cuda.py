@@ -299,3 +299,96 @@ def test_cuda_wrappers_raise_on_bad_input(cuda_device):
     with pytest.raises(TypeError):                          # kernel B is float32 only
         cuda_proj.line_polytope_projection(
             a, a[..., 0].contiguous(), a[:, 0].contiguous(), a[:, 0].contiguous())
+
+
+STRAIGHT_Q0 = np.array([0.0, 0.0, 0.0, -np.pi / 2, 0.0, np.pi / 2, 0.0])
+
+
+def straight_reference(node):
+    """The straight-line scene of tests/test_mpc.py from the node's pose."""
+    from scipy.spatial.transform import Rotation as R
+
+    p0 = node.p0.copy()
+    r0 = R.from_rotvec(p0[3:]).as_matrix()
+    erb = np.array([90, 90, 90, -90, -90, -90]) * np.pi / 180
+    return ([p0[:3].copy(), p0[:3] + np.array([0.0, -0.25, 0.0])], [r0, r0],
+            [np.array([0.0, 0.0, 1.0])], [np.array([0.0, 0.0, 1.0])], [erb],
+            [np.zeros((15, 3))], [np.ones(15)], [[0.7, -0.2, 0.0, 0.9, 0.0, 0.4]])
+
+
+def counted_step(node):
+    kkt_inverse.launches = 0
+    cuda_proj.line_polytope_projection.launches = 0
+    node.step()
+    return kkt_inverse.launches, cuda_proj.line_polytope_projection.launches
+
+
+@pytest.mark.cuda
+def test_cuda_node_f64_matches_cpu(cuda_device):
+    """MPCNode in f64 on the card (dense route, reduced budget) against the
+    CPU over 2 ticks; each step launches kernel A sqp x qp + 25 times (the
+    SQP's IPM, then the link sets' projection IPM) and kernel B never."""
+    from boundplanner_tpu_torch.config import MPCParams
+    from boundplanner_tpu_torch.mpc import MPCNode
+
+    cfg = MPCParams(sqp_iters=2, qp_iters=6, line_search_steps=2)
+    card, cpu = (MPCNode(STRAIGHT_Q0, cfg, device=d) for d in (cuda_device, "cpu"))
+    for node in (card, cpu):
+        node.update_reference(*straight_reference(node))
+    for _ in range(2):
+        assert counted_step(card) == (2 * 6 + 25, 0)
+        cpu.step()
+        for key in ("q", "dq", "p_lie"):
+            np.testing.assert_allclose(getattr(card, key), getattr(cpu, key), rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_cuda_node_f32_perf_launches(cuda_device):
+    """The 10 Hz configuration in f32: 12 kernel A and 1 kernel B launches
+    per step, finite state."""
+    from boundplanner_tpu_torch.config import perf_mpc_params
+    from boundplanner_tpu_torch.mpc import MPCNode
+
+    node = MPCNode(STRAIGHT_Q0, perf_mpc_params(), device=cuda_device, dtype=torch.float32)
+    node.update_reference(*straight_reference(node))
+    for _ in range(2):
+        assert counted_step(node) == (12, 1)
+    assert np.isfinite(node.q).all() and node.mpc.phi_current[0] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["iiwa14", "gen3"])
+def test_cuda_robot_model_matches_cpu(cuda_device, robot):
+    from scipy.spatial.transform import Rotation as R
+    from boundplanner_tpu_torch.robot.model import RobotModel
+
+    card, cpu = RobotModel(robot, device=cuda_device), RobotModel(robot, device="cpu")
+    q, dq = np.random.default_rng(3).normal(size=(2, 7))
+    for a, b in zip(card.forward_kinematics(q, dq), cpu.forward_kinematics(q, dq)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-12)
+    pose = cpu.fk(STRAIGHT_Q0 + 0.1)
+    pd, rd = pose[:3], R.from_rotvec(pose[3:]).as_matrix()
+    np.testing.assert_allclose(card.inverse_kinematics(pd, rd, STRAIGHT_Q0),
+                               cpu.inverse_kinematics(pd, rd, STRAIGHT_Q0), rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_resume(cuda_device, tmp_path):
+    """A carry saved on the card and loaded back steps exactly as the
+    uninterrupted one."""
+    from boundplanner_tpu_torch.checkpoint import load_carry, save_carry
+    from boundplanner_tpu_torch.config import perf_mpc_params
+    from boundplanner_tpu_torch.mpc import BoundMPC, MPCNode
+
+    node = MPCNode(STRAIGHT_Q0, perf_mpc_params(), device=cuda_device, dtype=torch.float32)
+    args = straight_reference(node)
+    node.update_reference(*args)
+    node.step()
+    save_carry(tmp_path / "carry.npz", node.mpc.carry)
+    twin = BoundMPC(*args, p0=node.p0, params=node.params, device=cuda_device,
+                    dtype=torch.float32)
+    twin.carry = load_carry(tmp_path / "carry.npz", device=cuda_device, dtype=torch.float32)
+    meas = (node.q, node.dq, node.ddq, node.p_lie, node.v, node.jerk, node.qf)
+    out_a, out_b = node.mpc.step(*meas), twin.step(*meas)
+    for key in out_a[0]:
+        np.testing.assert_array_equal(out_b[0][key], out_a[0][key])

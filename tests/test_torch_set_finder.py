@@ -167,7 +167,12 @@ def test_build_path_bit_equal(dtype):
 
 
 def test_build_path_spiral_not_ported():
-    with pytest.raises(NotImplementedError):
-        tpath.build_path([np.zeros(3), np.ones(3)], [np.eye(3)] * 2, [np.ones(3)],
-                         [np.ones(3)], [np.zeros(6)], [np.eye(3)], [np.ones(3)],
-                         spiral_blend=0.05)
+    """``spiral_blend > 0`` on a path without an interior corner: the
+    corner blending (ported since; its corner cases are in
+    tests/test_torch_runtime.py) passes it through, bit-equal to JAX."""
+    args = ([np.zeros(3), np.ones(3)], [np.eye(3)] * 2, [np.ones(3)],
+            [np.ones(3)], [np.zeros(6)], [np.eye(3)], [np.ones(3)])
+    got = tpath.build_path(*args, spiral_blend=0.05)
+    ref = jpath.build_path(*args, spiral_blend=0.05)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g, r)
