@@ -1,6 +1,7 @@
 """Randomized-scene fleets: plan on the host over device kernels, stack,
-roll out batched (port of ``random_scene``, ``plan_scene``, ``build_fleet``
-and ``build_fleet_threaded`` of ``boundplanner_tpu/parallel/fleet.py``).
+roll out batched (port of ``boundplanner_tpu/parallel/fleet.py``:
+``random_scene``, ``plan_scene`` and the builders ``build_fleet``,
+``build_fleet_threaded`` and ``build_fleet_mp``).
 
 Scenes differ in goal and obstacle layout. Each scene's planning (the
 irregular graph search) runs on the host, its numeric leaves as torch on
@@ -15,7 +16,9 @@ The draw scheme is the JAX package's: draw ``d`` samples its scene from
 
 from __future__ import annotations
 
+import os
 import threading
+import time
 
 import numpy as np
 import torch
@@ -125,10 +128,133 @@ def build_fleet_sync(*args, **kwargs):
         "build_fleet_sync (phase-synchronous broker) is not ported; see ROADMAP.md")
 
 
-def build_fleet_mp(*args, **kwargs):
-    raise NotImplementedError(
-        "build_fleet_mp (process-pool planning for fleets >= 512) is not ported; "
-        "see ROADMAP.md")
+def _mp_worker_init(counter, n_cpus):
+    """Pool initializer: one torch thread, and the worker pinned to one core
+    so the processes' thread pools do not migrate and contend."""
+    torch.set_num_threads(1)
+    with counter.get_lock():
+        idx = counter.value
+        counter.value += 1
+    if n_cpus > 0:
+        try:
+            os.sched_setaffinity(0, {idx % n_cpus})
+        except (AttributeError, OSError):  # pragma: no cover - not Linux
+            pass
+
+
+def _mp_plan_block(args):
+    """Plan one block of draws in a worker process (top level, for spawn
+    pickling). Returns ([(draw, carry, obs)] of the successful draws, this
+    block's kernel launches in the worker)."""
+    from ..ops.cuda_proj import line_polytope_projection
+    from ..ops.linalg import kkt_inverse
+
+    draws, q0, n_obstacles, seed, cfg, dtype_name, device, plan_dtype = args
+    dtype = np.dtype(dtype_name).type
+    a0, b0 = kkt_inverse.launches, line_polytope_projection.launches
+    out = []
+    for draw in draws:
+        rng_i = np.random.default_rng(seed + 1000 * draw)
+        obstacles, goal = random_scene(rng_i, n_obstacles)
+        planned = plan_scene(q0, goal, obstacles, seed + draw, cfg, dtype,
+                             device=device, plan_dtype=plan_dtype)
+        if planned is not None:
+            out.append((draw, planned[0], planned[1]))
+    return out, {"pid": os.getpid(),
+                 "chol_inverse": kkt_inverse.launches - a0,
+                 "line_polytope": line_polytope_projection.launches - b0}
+
+
+# worker processes that share one card by default: the most measured on
+# the H100 (chip_smoke.py's fleet_mp phase); each holds its own CUDA context
+CARD_PROCS = 4
+# what a worker's BLAS and OpenMP pools read at start: one thread each
+_MP_ENV = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+
+
+def build_fleet_mp(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
+                   seed: int = 0, dtype=np.float32, n_procs: int | None = None,
+                   block: int = 32, pin: bool = True, device=DEFAULT_DEVICE,
+                   plan_dtype=torch.float32, timeout: float | None = None):
+    """Plan a large fleet on a pool of worker processes, each planning
+    unbrokered on ``device`` in ``plan_dtype`` with one torch thread.
+
+    Threads share one interpreter lock, so the scaling axis is processes.
+    The draw scheme is `build_fleet_threaded`'s (draw ``d`` samples with
+    ``seed + 1000 * d`` and plans with seed ``seed + d``), and the result
+    does not depend on scheduling: draws 1..M are planned, M = batch +
+    max(min(64, batch), batch // 8), in blocks of ``block`` draws, and the
+    first ``batch`` successes in draw order are kept. The pool is a spawn
+    context (never fork after CUDA has started); the parent builds the
+    kernel library and the geometry library first, so the workers only
+    load them. ``n_procs`` defaults to one per host core on the CPU and to
+    ``CARD_PROCS`` on a card. ``timeout`` bounds the wait for each block's
+    result.
+
+    Returns (carry_b, q0_b, obs_b, info): ``info`` holds ``planned``,
+    ``draws``, ``wall_s``, ``plans_per_s``, ``n_procs`` and the workers'
+    kernel ``launches`` (totals and ``per_worker`` by process id)."""
+    import multiprocessing as mp
+
+    from .. import native_geom
+    from ..ops import _build
+
+    device = checked_device(device)
+    if device.type == "cuda":
+        _build.build()
+    native_geom.available()
+    q0 = DEMO_Q0.copy() if q0 is None else np.asarray(q0, float)
+    if not n_procs:
+        n_procs = max(1, os.cpu_count() or 2)
+        if device.type == "cuda":
+            n_procs = min(n_procs, CARD_PROCS)
+    n_draws = batch + max(min(64, batch), batch // 8)
+    tasks = [(list(range(lo + 1, min(lo + block, n_draws) + 1)), q0, n_obstacles, seed, cfg,
+              np.dtype(dtype).name, str(device), plan_dtype)
+             for lo in range(0, n_draws, block)]
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    counter = ctx.Value("i", 0)
+    # spawned workers read the environment at start: set it for the pool's
+    # start only, then restore it for everything else in this process
+    saved = {k: os.environ.get(k) for k in _MP_ENV}
+    os.environ.update(_MP_ENV)
+    try:
+        pool_cm = ctx.Pool(processes=n_procs, initializer=_mp_worker_init,
+                           initargs=(counter, (os.cpu_count() or 1) if pin else 0))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    results = {}
+    per_worker = {}
+    with pool_cm as pool:
+        it = pool.imap_unordered(_mp_plan_block, tasks)
+        for _ in tasks:
+            blk, launches = it.next(timeout)
+            for draw, carry, obs in blk:
+                results[draw] = (carry, obs)
+            seen = per_worker.setdefault(launches.pop("pid"), {"chol_inverse": 0,
+                                                               "line_polytope": 0})
+            for key, n in launches.items():
+                seen[key] += n
+    wall = time.perf_counter() - t0
+    if len(results) < batch:
+        raise RuntimeError(f"only {len(results)}/{batch} scenes planned")
+    ordered = [results[k] for k in sorted(results)[:batch]]
+    info = {
+        "planned": len(results),
+        "draws": n_draws,
+        "wall_s": wall,
+        "plans_per_s": len(results) / wall,
+        "n_procs": n_procs,
+        "launches": {key: sum(w[key] for w in per_worker.values())
+                     for key in ("chol_inverse", "line_polytope")}
+                    | {"per_worker": per_worker},
+    }
+    return (*_stack_fleet(ordered, q0, batch, dtype), info)
 
 
 def build_fleet_threaded(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,

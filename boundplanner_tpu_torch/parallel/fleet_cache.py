@@ -1,5 +1,5 @@
 """Build, cache and load planner-built fleets without jax
-(port of ``cache_path``, ``build_and_save`` and ``load`` of
+(port of ``cache_path``, ``build_and_save``, ``load`` and ``ensure`` of
 ``boundplanner_tpu/parallel/fleet_cache.py``).
 
 A cache file (schema ``fleet_cache_v1``) is a pickle of the stacked fleet:
@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import subprocess
 import sys
 
 import numpy as np
@@ -60,20 +61,30 @@ def cache_path(batch: int, seed: int, nr_segs: int, root: str | None = None) -> 
 
 def build_and_save(batch: int, seed: int, path: str, n_threads: int = 8,
                    dtype=np.float32, device=DEFAULT_DEVICE, plan_dtype=torch.float32):
-    """Plan the fleet with the broker-coalesced thread builder
-    (`fleet.build_fleet_threaded`) on ``device`` in ``plan_dtype`` and
-    pickle it. Fleets of 512 scenes or more (the JAX package's process-pool
-    builder) are not ported."""
+    """Plan the fleet on ``device`` in ``plan_dtype`` and pickle it.
+
+    Fleets under 512 scenes use the broker-coalesced thread builder
+    (`fleet.build_fleet_threaded`, its broker's counters as the stats);
+    larger ones the process-pool builder (`fleet.build_fleet_mp`, its
+    ``info`` as the stats), whose rate scales with host cores instead of
+    one interpreter lock."""
     from .fleet import build_fleet_mp, build_fleet_threaded
 
     device = checked_device(device)
     cfg = perf_mpc_params()
     if batch >= 512:
-        build_fleet_mp(batch, cfg, seed=seed, dtype=dtype)
-    carry_b, q0_b, obs_b, brk = build_fleet_threaded(
-        batch, cfg, seed=seed, dtype=dtype, n_threads=n_threads,
-        device=device, plan_dtype=plan_dtype,
-    )
+        carry_b, q0_b, obs_b, stats = build_fleet_mp(
+            batch, cfg, seed=seed, dtype=dtype, device=device, plan_dtype=plan_dtype)
+    else:
+        carry_b, q0_b, obs_b, brk = build_fleet_threaded(
+            batch, cfg, seed=seed, dtype=dtype, n_threads=n_threads,
+            device=device, plan_dtype=plan_dtype,
+        )
+        stats = {
+            "calls_served": brk.calls_served,
+            "batches_run": brk.batches_run,
+            "coalesced_calls": brk.coalesced_calls,
+        }
     payload = {
         "schema": SCHEMA,
         "batch": batch,
@@ -82,11 +93,7 @@ def build_and_save(batch: int, seed: int, path: str, n_threads: int = 8,
         "carry": carry_b,
         "q0": q0_b,
         "obs": obs_b,
-        "broker_stats": {
-            "calls_served": brk.calls_served,
-            "batches_run": brk.batches_run,
-            "coalesced_calls": brk.coalesced_calls,
-        },
+        "broker_stats": stats,
     }
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "wb") as f:
@@ -107,6 +114,22 @@ def load_fleet(path: str, device=DEFAULT_DEVICE, dtype=torch.float32):
     device = checked_device(device)
     payload = load(path)
     return to_torch((payload["carry"], payload["q0"], payload["obs"]), device, dtype)
+
+
+def ensure(batch: int, seed: int, nr_segs: int, timeout: float = 3600.0,
+           device=DEFAULT_DEVICE):
+    """The cached fleet (the payload of `load`), built first on ``device``
+    in a subprocess if the file is missing (the subprocess plans with its
+    own interpreter and device context, so a caller that holds the card
+    for other work is not slowed by the planner's threads)."""
+    device = checked_device(device)
+    path = cache_path(batch, seed, nr_segs)
+    if not os.path.exists(path):
+        root = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
+        subprocess.run([sys.executable, "-m", "boundplanner_tpu_torch.parallel.fleet_cache",
+                        str(batch), str(seed), path, "--device", str(device)],
+                       check=True, timeout=timeout, cwd=root)
+    return load(path)
 
 
 def main(argv):

@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU (H100):
     python3 chip_smoke.py --only-runtime [--out DIR]
     python3 chip_smoke.py --compare-kernel-b SOURCE [--out DIR]
 
-The second form runs only the runtime phases (10-12 below). The third
+The second form runs only the runtime phases (13-15 below). The third
 only builds, then times kernel B of SOURCE (another
 tree's ``csrc/line_polytope.cu``, same C entry) against this tree's in
 turns (SOURCE, this, this, SOURCE) at kernel B's folds, and checks that
@@ -19,9 +19,10 @@ Phases (each asserts; any failure exits non-zero):
    from ``boundplanner_tpu_torch/csrc`` with nvcc (one per source, in
    parallel);
 2. kernel A (Cholesky + inverse) against its plain PyTorch version on the
-   card, at the fleet's shapes (128, 136, 136) and (1, 136, 136) in f32 and
-   (2, 136, 136) in f64, and on batches of non-PD matrices at n = 136 in
-   f32 and f64 (the same finite flag per matrix as the plain version);
+   card, at the fleet's shapes (128, 136, 136) and (1, 136, 136) in f32,
+   (2, 136, 136) in f64 and (64, 136, 136) in f32 (one rank's block of the
+   sharded rollouts), and on batches of non-PD matrices at n = 136 in f32
+   and f64 (the same finite flag per matrix as the plain version);
 3. kernel B (segment-polytope projection) against its plain version at
    the tick's shapes, P = 12288 and P = 1, R = 15, with zero-padded rows
    and inactive obstacles, and at the planner's, P = 16 and P = 1024 (one
@@ -34,27 +35,41 @@ Phases (each asserts; any failure exits non-zero):
 5. the main path: the cached 128-scene fleet, ``FleetMPC(perf_mpc_params())``
    -> ``chunked_rollout`` for 20 ticks in f32 (warm-up, then timed), with
    the kernels' launch counts, fleet quality and single-scene tick latency;
-   then the same fleet's quality with a kernel's route swapped (kernel A
+   then the scene and tick of its worst attempted violation, that scene's
+   inputs before the tick saved (``--out``) and the tick replayed on the
+   card at batch 128 and at batch 1; then the same fleet's quality with a
+   kernel's route swapped (kernel A
    again, its plain version, kernel A in f64, kernel B's plain version);
 6. kernel A against its plain version at the planner's shapes, f32:
    batch 64 at n = 3, 4, 8, 12, 16, 20, 24, and (1, 3, 3), (1024, 3, 3),
    (1280, 4, 4);
 7. the planner in f64: one fleet draw (seed 7, draw 1) planned by
    ``parallel.fleet.plan_scene`` on the CPU and on the card, same carry;
-8. the planner path: ``parallel.fleet.build_fleet_threaded`` plans a
-   fleet of 4 scenes in f32 on the card through the broker (seed 7, 3 obstacles, 8
-   threads, the settings that built the cached fleet), with its rate, the
+8. the batched shortest path (``planner.device_search``) on the card: 128
+   random roadmaps padded to 64 junctions against the host Dijkstra;
+9. the planner path: ``parallel.fleet.build_fleet_threaded`` plans a
+   fleet of 2 scenes in f32 on the card through the broker (seed 7, 3
+   obstacles, 2 threads; the cached fleet was built with 8), with its rate, the
    draws it kept, the broker's counters, both kernels' launches, the
    corridor invariants of every scene, and how its scenes compare with the
    cached JAX-built ones;
-9. the planned fleet rolled out for 20 ticks through the MPC on the card;
-10. the single-arm runtime (also alone: ``--only-runtime``): the
+10. the process-pool builder ``parallel.fleet.build_fleet_mp``: 8 scenes
+    (the same settings) planned by the default 4 spawned workers on the
+    card (``fleet.CARD_PROCS``), both kernels' launches in every worker,
+    sound corridors;
+11. that fleet rolled out for 20 ticks through the MPC on the card;
+12. the multi-device tier: 2 ranks of ``parallel.dryrun`` started by
+    ``parallel.distributed.launch`` over gloo on this card, 64 scenes
+    each for 10 ticks, the dry-run bars on identical global diagnostics,
+    each rank equal by value to one process at chunk 64, 120 / 10
+    launches per rank; then ``dryrun_multichip`` over ``make_mesh()``;
+13. the single-arm runtime (also alone: ``--only-runtime``): the
     tests/test_e2e.py scene planned on the card in f64, then ``MPCNode``
     with ``MPCParams()`` in f64 (the first 3 ticks also on the CPU) toward
     the path end, with kernel A's (1, 136, 136) and (96, 4, 4) f64 rows;
-11. the same plan through ``MPCNode`` with ``perf_mpc_params()`` in f32,
+14. the same plan through ``MPCNode`` with ``perf_mpc_params()`` in f32,
     the 10 Hz loop, with ``t_comp``/``t_loop`` percentiles;
-12. IK on the card against the CPU, and a checkpoint saved and resumed on
+15. IK on the card against the CPU, and a checkpoint saved and resumed on
     the card.
 
 Every kernel row gives the kernel's time (CUDA events), its plain
@@ -93,15 +108,17 @@ N_TICKS = 20
 CHUNK = 128
 LATENCY_REPS = 50
 PLAN_SEED = 7          # the seed of the cached fleet
-# 4 of the cached fleet's 128 scenes: one plan takes ~20 s on the card and
-# the host-bound planner threads share one interpreter, so 8 scenes take
-# ~250 s (PERF.md), and the runtime phases need that time. The widths are
-# the JAX package's own.
-PLAN_SCENES = 4
-# at 4 scenes one scene is a quarter of the planned rollout's ticks: the
-# floor lets one hard scene fail throughout (card plans of 4 scenes have
-# rolled out at 0.8125 and 0.9875) and still catches a broken port, which
-# lands near 0 (PERF.md §2)
+# 2 of the cached fleet's 128 scenes on 2 threads: one plan takes ~20 s on
+# the card and the host-bound planner threads share one interpreter (every
+# thread plans a draw at once: 8 threads and 4 scenes took ~280-300 s,
+# PERF.md), and the process-pool and runtime phases need that time. The
+# widths are the JAX package's own.
+PLAN_SCENES = 2
+PLAN_THREADS = 2
+# the planned rollout rolls out the process-pool builder's 8 scenes: one
+# hard scene failing throughout is an eighth of the ticks (card plans have
+# rolled out at 0.875 with one such scene), and a broken port lands near 0
+# (PERF.md §2)
 PLANNED_FLOOR = 0.75
 PLAN_OBSTACLES = 3
 PLAN_OBS_INFLATE = 0.08           # BoundPlanner's default obs_size_increase
@@ -122,6 +139,14 @@ RUNTIME_MAX_TICKS = 60
 RUNTIME_F64_CAP_S = 150.0
 RUNTIME_F32_CAP_S = 90.0
 PROJ_IPM_ITERS = 25               # the f64 link sets' projection IPM (`_seg_closest_ipm`)
+# the fleet tier: the process-pool builder (MP_SCENES scenes, its default
+# count of spawned workers, blocks of MP_BLOCK draws), the batched shortest path
+# (SPATH_SCENES roadmaps padded to SPATH_PAD junctions), and the dry run
+# over DRYRUN_RANKS ranks sharing the card, SHARD scenes each
+MP_SCENES, MP_BLOCK = 8, 2
+SPATH_SCENES, SPATH_PAD = 128, 64
+DRYRUN_RANKS, DRYRUN_TICKS = 2, 10
+SHARD = 64
 # the card's published peaks (H100 SXM, dense, at a 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}   # outside the tensor cores
@@ -700,6 +725,7 @@ def phase_planner_f64(cfg, dev):
     emit(row)
     assert row["vias_cpu"] == row["vias_card"], row
     assert err <= 1e-9, f"f64 plan on the card disagrees with the CPU: {err}"
+    return row
 
 
 def corridor_ok(carry, obs, i):
@@ -787,7 +813,7 @@ def phase_plan_fleet(cfg, dev, payload):
     t0 = time.perf_counter()
     carry, q0, obs, brk = build_fleet_threaded(
         PLAN_SCENES, cfg, seed=PLAN_SEED, n_obstacles=PLAN_OBSTACLES, dtype=np.float32,
-        n_threads=8, linger=0.030, device=dev, plan_dtype=torch.float32)
+        n_threads=PLAN_THREADS, linger=0.030, device=dev, plan_dtype=torch.float32)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"chol_inverse": kkt_inverse.launches,
@@ -833,6 +859,219 @@ def phase_planned_rollout(fleet, cfg, dev):
     emit(row)
     assert row["success_rate"] >= PLANNED_FLOOR, \
         f"planned fleet success_rate {row['success_rate']} < {PLANNED_FLOOR}"
+    return row
+
+
+def phase_kernel_a_shard(dev):
+    """Kernel A at (SHARD, 136, 136) f32: the tick of one rank's (or one
+    device's) block of the sharded rollouts, with the bars of
+    `phase_kernel_a` (its own seed, so the other phases' inputs stay)."""
+    import numpy as np
+    import torch
+
+    k = spd_batch(np.random.default_rng(SHARD), SHARD, dtype="float32")
+    return kernel_a_row("kernel_a_shard", torch.from_numpy(k).to(dev), 200)
+
+
+def phase_worst_tick(payload, cfg, dev, out_dir):
+    """The main path's worst attempted violation: the fleet rolled out again
+    tick by tick (chunk 128, as the main path: the same records), the
+    scene and tick of the largest ``viol`` found, and that scene's carry,
+    measurement and obstacles before that tick saved (``--out DIR``,
+    ``worst_tick_carry.npz`` in the checkpoint format and
+    ``worst_tick_inputs.npz``), then the tick replayed on the card at
+    batch 128 (the same inputs: the same outputs) and at batch 1."""
+    import numpy as np
+    import torch
+    from boundplanner_tpu_torch.checkpoint import save_carry
+    from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
+    from boundplanner_tpu_torch.parallel.batch import _plant_measurement
+    from boundplanner_tpu_torch.utils.integration import integrate_jerk_step
+    from boundplanner_tpu_torch.utils.tree import to_numpy, to_torch, tree_map
+
+    carry, q0, obs = to_torch((payload["carry"], payload["q0"], payload["obs"]),
+                              dev, torch.float32)
+    assert q0.shape[0] == CHUNK
+    model = FleetMPC(cfg, device=dev, dtype=torch.float32)
+    # `batch.fleet_rollout`'s loop, keeping each tick's carry and measurement
+    zeros = torch.zeros_like(q0)
+    carry_i, q, dq, ddq, jerk, qf = carry, q0, zeros, zeros, zeros, q0
+    before, viols, oks = [], [], []
+    with torch.no_grad():
+        for _ in range(N_TICKS):
+            meas = _plant_measurement(q, dq, ddq, jerk, qf, model.st.chain)
+            before.append((carry_i, meas))
+            carry_i, out = model.tick(carry_i, meas, obs)
+            u0, u1 = out["dddq"][:, 0], out["dddq"][:, 1]
+            q, dq, ddq = integrate_jerk_step(q, dq, ddq, u0, u1, cfg.dt)
+            jerk, qf = u1, out["q"][:, -1]
+            viols.append(out["viol"])
+            oks.append(out["success"])
+    recs = {"viol": torch.stack(viols, 1), "success": torch.stack(oks, 1)}
+    viol = recs["viol"].float()
+    flat = int(torch.argmax(viol))
+    scene, tick = divmod(flat, N_TICKS)
+    carry_t, meas_t = before[tick]
+    with torch.no_grad():
+        _, out_all = model.tick(carry_t, meas_t, obs)
+        one = lambda tree: tree_map(lambda t: t[scene:scene + 1], tree)
+        _, out_one = model.tick(one(carry_t), one(meas_t), one(obs))
+    row = {"phase": "worst_tick", "scene": scene, "tick": tick,
+           "viol": float(viol[scene, tick]), "success": bool(recs["success"][scene, tick]),
+           "viol_replay_batch128": float(out_all["viol"][scene]),
+           "viol_replay_batch1": float(out_one["viol"][0]),
+           "success_replay_batch1": bool(out_one["success"][0]),
+           "viol_ticks_of_scene": viol[scene].tolist()}
+    emit(row)
+    assert row["viol_replay_batch128"] == row["viol"], row
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        drop = lambda tree: to_numpy(tree_map(lambda t: t[scene], tree))
+        save_carry(os.path.join(out_dir, "worst_tick_carry.npz"), drop(carry_t))
+        arrays = {f"meas.{k}": v for k, v in drop(meas_t).items()}
+        arrays.update({f"obs.{k}": v for k, v in drop(obs)._asdict().items()})
+        np.savez(os.path.join(out_dir, "worst_tick_inputs.npz"), scene=scene, tick=tick,
+                 viol_card=row["viol"], viol_card_batch1=row["viol_replay_batch1"], **arrays)
+    return row
+
+
+def random_roadmap(rng, n_junctions):
+    """A SetRoadmap with random positive weights over a random connected
+    topology (dummy junctions: only the adjacency matters for search)."""
+    import numpy as np
+    from boundplanner_tpu_torch.planner.roadmap import Junction, SetRoadmap
+
+    rm = SetRoadmap(w_size=0.0, w_bias=0.0, c_fit=0.0)
+    for _ in range(n_junctions):
+        rm.junctions.append(Junction(a=np.zeros((1, 3)), b=np.zeros(1), owners=(0, 0),
+                                     anchor=np.zeros(3), via=np.zeros(4), fits=True))
+        rm._adj.append({})
+    order = rng.permutation(n_junctions)
+    for i in range(1, n_junctions):
+        u, v = int(order[i]), int(order[rng.integers(0, i)])
+        rm._adj[u][v] = rm._adj[v][u] = float(rng.uniform(0.1, 2.0))
+    for _ in range(2 * n_junctions):
+        u, v = (int(x) for x in rng.integers(0, n_junctions, 2))
+        if u != v:
+            rm._adj[u][v] = rm._adj[v][u] = float(rng.uniform(0.1, 2.0))
+    return rm
+
+
+def phase_device_search(dev):
+    """The batched min-plus shortest path on the card: 128 random roadmaps
+    padded to 64 junctions in one call, each path's cost equal to the host
+    Dijkstra's (rtol 1e-5), and the call's wall beside the host's."""
+    import numpy as np
+    import torch
+    from boundplanner_tpu_torch.planner.device_search import fleet_shortest_paths
+
+    rng = np.random.default_rng(64)
+    rms = [random_roadmap(rng, int(rng.integers(4, SPATH_PAD + 1))) for _ in range(SPATH_SCENES)]
+    cost = lambda rm, path: sum(rm._adj[u][v] for u, v in zip(path, path[1:]))
+    paths = fleet_shortest_paths(rms, n_pad=SPATH_PAD, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fleet_shortest_paths(rms, n_pad=SPATH_PAD, device=dev)
+    call_ms = 1e3 * (time.perf_counter() - t0) / 3
+    t0 = time.perf_counter()
+    host = [rm.shortest_path() for rm in rms]
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    rel = max(abs(cost(rm, p) - cost(rm, h)) / cost(rm, h) for rm, p, h in zip(rms, paths, host))
+
+    row = {"phase": "device_search", "roadmaps": SPATH_SCENES, "n_pad": SPATH_PAD,
+           "max_rel_cost_err": rel, "call_wall_ms": call_ms, "host_dijkstra_wall_ms": host_ms}
+    emit(row)
+    assert rel <= 1e-5, row
+    return row
+
+
+def phase_fleet_mp(cfg, dev):
+    """The process-pool builder on the card: MP_SCENES scenes (seed 7, 3
+    boxes + floor, f32) planned by the builder's default count of spawned
+    workers on a card (`fleet.CARD_PROCS`) in blocks of
+    MP_BLOCK draws, each worker planning on the card with its own context.
+    Both kernels must have run in the workers, and every corridor must be
+    sound."""
+    import numpy as np
+    import torch
+    from boundplanner_tpu_torch.parallel.fleet import build_fleet_mp
+
+    carry, q0, obs, info = build_fleet_mp(
+        MP_SCENES, cfg, n_obstacles=PLAN_OBSTACLES, seed=PLAN_SEED, dtype=np.float32,
+        block=MP_BLOCK, device=dev, plan_dtype=torch.float32, timeout=900)
+    sound = [corridor_ok(carry, obs, i) for i in range(MP_SCENES)]
+    workers = info["launches"]["per_worker"]
+    row = {"phase": "fleet_mp", "scenes": MP_SCENES, "procs": info["n_procs"], "block": MP_BLOCK,
+           "draws": info["draws"], "planned": info["planned"], "wall_s": info["wall_s"],
+           "plans_per_s": info["plans_per_s"], "kept_draws": kept_draws(obs),
+           "launches": {k: info["launches"][k] for k in ("chol_inverse", "line_polytope")},
+           "launches_per_worker": {str(pid): n for pid, n in workers.items()},
+           "corridors_sound": sum(sound),
+           "segments": [int(n) + 1 for n in carry.path.num_sectors]}
+    emit(row)
+    assert all(n["chol_inverse"] > 0 and n["line_polytope"] > 0 for n in workers.values()), \
+        f"a worker planned without both kernels: {workers}"
+    assert all(sound), f"corridor invariants fail for scenes {[i for i, ok in enumerate(sound) if not ok]}"
+    return (carry, q0, obs), row
+
+
+def phase_multi_gpu(payload, cfg, dev):
+    """The multi-device tier on one card: the launcher starts 2 ranks of
+    ``python -m boundplanner_tpu_torch.parallel.dryrun`` over gloo (both on
+    this card); each rolls out its 64 of the cached fleet's 128 scenes for
+    10 ticks and asserts the dry-run bars on the global diagnostics, which
+    must be the same on both ranks. Each rank's phi per tick and final q
+    must equal one process's ``chunked_rollout`` at chunk 64 by value, and
+    its launches be 12 of kernel A and 1 of kernel B per tick. Then
+    ``dryrun_multichip`` in this process over ``make_mesh()`` (this card),
+    the same by value as ``chunked_rollout`` at chunk 128."""
+    import numpy as np
+    import torch
+    from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
+    from boundplanner_tpu_torch.parallel import distributed as dist
+    from boundplanner_tpu_torch.parallel.batch import chunked_rollout
+    from boundplanner_tpu_torch.parallel.dryrun import dryrun_multichip
+    from boundplanner_tpu_torch.utils.tree import to_torch
+
+    t0 = time.perf_counter()
+    results = dist.launch([sys.executable, "-m", "boundplanner_tpu_torch.parallel.dryrun",
+                           "--ticks", str(DRYRUN_TICKS), "--backend", "gloo"],
+                          nproc=DRYRUN_RANKS, timeout=600)
+    launch_s = time.perf_counter() - t0
+    ranks = sorted((json.loads(next(ln for ln in out.splitlines()
+                                     if ln.startswith("DRYRUN_RESULT "))[len("DRYRUN_RESULT "):])
+                    for _, out in results), key=lambda r: r["rank"])
+    carry, q0, obs = to_torch((payload["carry"], payload["q0"], payload["obs"]),
+                              dev, torch.float32)
+    model = FleetMPC(cfg, device=dev, dtype=torch.float32)
+    per = q0.shape[0] // DRYRUN_RANKS
+    refs = {}
+    for chunk in (per, q0.shape[0]):
+        _, recs = chunked_rollout(carry, q0, obs, model, DRYRUN_TICKS, chunk=chunk)
+        refs[chunk] = (recs["phi"].cpu().numpy(), recs["q"][:, -1].cpu().numpy())
+    phi = np.concatenate([np.asarray(r["phi"], np.float32) for r in ranks])
+    q = np.concatenate([np.asarray(r["q"], np.float32) for r in ranks])
+    t0 = time.perf_counter()
+    mesh = dryrun_multichip(n_ticks=DRYRUN_TICKS)
+    mesh_s = time.perf_counter() - t0
+    want = {"chol_inverse": cfg.sqp_iters * cfg.qp_iters * DRYRUN_TICKS,
+            "line_polytope": DRYRUN_TICKS}
+    row = {"phase": "multi_gpu", "ranks": DRYRUN_RANKS, "backend": "gloo",
+           "scenes_per_rank": per, "ticks": DRYRUN_TICKS, "launch_wall_s": launch_s,
+           "diag": ranks[0]["diag"], "diag_equal_on_ranks": all(r["diag"] == ranks[0]["diag"]
+                                                                for r in ranks),
+           "launches_per_rank": [r["launches"] for r in ranks], "launches_want": want,
+           "max_abs_err_phi_vs_chunked": float(np.abs(phi - refs[per][0]).max()),
+           "max_abs_err_q_vs_chunked": float(np.abs(q - refs[per][1]).max()),
+           "mesh_devices": mesh["shards"], "mesh_wall_s": mesh_s, "mesh_diag": mesh["diag"],
+           "mesh_max_abs_err_phi_vs_chunked": float(np.abs(mesh["phi"] - refs[128][0]).max())}
+    emit(row)
+    assert [r["lo"] for r in ranks] == [i * per for i in range(DRYRUN_RANKS)], ranks
+    assert row["diag_equal_on_ranks"], [r["diag"] for r in ranks]
+    assert all(r["launches"] == want for r in ranks), row["launches_per_rank"]
+    assert np.array_equal(phi, refs[per][0]) and np.array_equal(q, refs[per][1]), row
+    assert np.array_equal(mesh["phi"], refs[128][0]) and np.array_equal(mesh["q"], refs[128][1]), row
     return row
 
 
@@ -1084,15 +1323,20 @@ def main(argv):
 
     rng = np.random.default_rng(0)
     a = phase_kernel_a(rng, dev)
+    a_shard = phase_kernel_a_shard(dev)
     b_all = phase_kernel_b(rng, dev, real)
     b = b_all[0]
     phase_small_f64(payload, cfg, dev)
     main_res = phase_main(payload, cfg, dev)
+    phase_worst_tick(payload, cfg, dev, out_dir)
     routes = phase_main_routes(payload, cfg, dev)
     a_plan = phase_kernel_a_planner(rng, dev)
     phase_planner_f64(cfg, dev)
-    fleet, plan = phase_plan_fleet(cfg, dev, payload)
+    spath = phase_device_search(dev)
+    _, plan = phase_plan_fleet(cfg, dev, payload)
+    fleet, mp_row = phase_fleet_mp(cfg, dev)
     rollout = phase_planned_rollout(fleet, cfg, dev)
+    multi = phase_multi_gpu(payload, cfg, dev)
     rt64, rt32, parts = run_runtime(dev)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "roofline_share",
@@ -1104,18 +1348,23 @@ def main(argv):
          "replaces": "boundplanner_tpu/ops/pallas_chol.py:386",
          "launches": main_res["launches"]["chol_inverse"],
          "launches_plan_fleet": plan["launches"]["chol_inverse"],
+         "launches_fleet_mp": mp_row["launches"]["chol_inverse"],
+         "launches_multi_gpu_per_rank": [r["chol_inverse"] for r in multi["launches_per_rank"]],
          "launches_runtime_f64": rt64["launches"]["chol_inverse"],
          "launches_runtime_f32": rt32["launches"]["chol_inverse"],
          **summary(a[0]), "launch_only_ms": a[0]["launch_only_ms"],
          "library": a[0]["library"],
          "shapes": [{"shape": r["shape"], "dtype": r["dtype"], **summary(r),
                      "launch_only_ms": r["launch_only_ms"]}
-                    for r in a + a_plan + [rt64["kernel_a"], rt64["kernel_a_projection"]]]},
+                    for r in a + [a_shard] + a_plan + [rt64["kernel_a"],
+                                                       rt64["kernel_a_projection"]]]},
         {"name": "line_polytope", "route": "cuda",
          "source": "boundplanner_tpu_torch/csrc/line_polytope.cu",
          "replaces": "boundplanner_tpu/ops/pallas_proj.py:95",
          "launches": main_res["launches"]["line_polytope"],
          "launches_plan_fleet": plan["launches"]["line_polytope"],
+         "launches_fleet_mp": mp_row["launches"]["line_polytope"],
+         "launches_multi_gpu_per_rank": [r["line_polytope"] for r in multi["launches_per_rank"]],
          "launches_runtime_f64": rt64["launches"]["line_polytope"],
          "launches_runtime_f32": rt32["launches"]["line_polytope"],
          **summary(b), "launch_only_ms": b["launch_only_ms"],
@@ -1129,7 +1378,8 @@ def main(argv):
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
             json.dump({"card": card, "main": main_res, "main_routes": routes, "plan_fleet": plan,
-                       "planned_rollout": rollout, "runtime_f64": rt64, "runtime_f32": rt32,
+                       "device_search": spath, "fleet_mp": mp_row, "planned_rollout": rollout,
+                       "multi_gpu": multi, "runtime_f64": rt64, "runtime_f32": rt32,
                        "runtime_parts": parts, **kernels}, f, indent=1)
         with open(path + ".log") as src, open(os.path.join(out_dir, "nvcc.log"), "w") as dst:
             dst.write(src.read())

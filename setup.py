@@ -13,8 +13,9 @@ setup(
         "boundplanner_tpu", "boundplanner_tpu.*",
         "boundplanner_tpu_torch", "boundplanner_tpu_torch.*",
     ]),
-    # the PyTorch/CUDA port builds its kernels from these sources at first use
-    package_data={"boundplanner_tpu_torch": ["csrc/*.cu"]},
+    # the PyTorch/CUDA port builds its kernels from these sources at first
+    # use; data/ holds recorded inputs that its tests replay
+    package_data={"boundplanner_tpu_torch": ["csrc/*.cu", "data/*.npz"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -152,12 +152,26 @@ def test_brokered_planners_match_direct():
             np.testing.assert_allclose(b0, b1, rtol=0, atol=1e-12)
 
 
-def test_unported_builders_raise():
+def test_unported_builders_raise(monkeypatch):
+    """The phase-synchronous builder is not ported. The process-pool builder
+    is: on a machine without a card its default device raises the card's
+    error at once, and ``build_and_save`` sends 512 scenes or more to it."""
     cfg = perf_mpc_params()
-    for fn in (fleet.build_fleet_mp, fleet.build_fleet_sync):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(4, cfg)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fleet.build_fleet_sync(4, cfg)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fleet.build_fleet_mp(4, cfg)
+
+    class Routed(Exception):
+        pass
+
+    def pool_builder(batch, cfg, **kw):
+        raise Routed(batch)
+
+    monkeypatch.setattr(fleet, "build_fleet_mp", pool_builder)
+    with pytest.raises(Routed):
         fleet_cache.build_and_save(512, 0, "unused.pkl", device="cpu")
 
 

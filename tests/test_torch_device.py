@@ -14,9 +14,13 @@ import torch
 
 from boundplanner_tpu_torch.config import perf_mpc_params
 from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
-from boundplanner_tpu_torch.parallel import fleet, fleet_cache
+from boundplanner_tpu_torch.parallel import distributed, fleet, fleet_cache
 from boundplanner_tpu_torch.parallel.broker import BatchBroker
+from boundplanner_tpu_torch.parallel.dryrun import dryrun_multichip
+from boundplanner_tpu_torch.parallel.mesh import make_mesh, sharded_rollout
+from boundplanner_tpu_torch.planner.device_search import fleet_shortest_paths
 from boundplanner_tpu_torch.planner.planner import BoundPlanner
+from boundplanner_tpu_torch.planner.roadmap import SetRoadmap
 from boundplanner_tpu_torch.utils import tree
 from boundplanner_tpu_torch.utils.device import checked_device
 
@@ -31,8 +35,11 @@ ENTRY_POINTS = {
     "plan_scene": (fleet.plan_scene, "device"),
     "build_fleet": (fleet.build_fleet, "device"),
     "build_fleet_threaded": (fleet.build_fleet_threaded, "device"),
+    "build_fleet_mp": (fleet.build_fleet_mp, "device"),
     "build_and_save": (fleet_cache.build_and_save, "device"),
+    "ensure": (fleet_cache.ensure, "device"),
     "load_fleet": (fleet_cache.load_fleet, "device"),
+    "fleet_shortest_paths": (fleet_shortest_paths, "device"),
 }
 
 
@@ -67,8 +74,17 @@ CALLS = {
                                            perf_mpc_params()),
     "build_fleet": lambda: fleet.build_fleet(2, perf_mpc_params()),
     "build_fleet_threaded": lambda: fleet.build_fleet_threaded(2, perf_mpc_params()),
+    "build_fleet_mp": lambda: fleet.build_fleet_mp(2, perf_mpc_params()),
     "build_and_save": lambda: fleet_cache.build_and_save(2, 0, "unused.pkl"),
+    "ensure": lambda: fleet_cache.ensure(2, 0, 4),
     "load_fleet": lambda: fleet_cache.load_fleet(FLEET8),
+    "fleet_shortest_paths": lambda: fleet_shortest_paths([SetRoadmap(0.0, 0.0, 0.0)]),
+    "make_mesh": lambda: make_mesh(),
+    "sharded_rollout": lambda: sharded_rollout(*fleet_cache.load_fleet(FLEET8, "cpu"),
+                                               perf_mpc_params(), 1, make_mesh()),
+    "distributed_rollout": lambda: distributed.distributed_rollout(
+        *fleet_cache.load_fleet(FLEET8, "cpu"), perf_mpc_params(), 1),
+    "dryrun_multichip": lambda: dryrun_multichip(),
 }
 
 
