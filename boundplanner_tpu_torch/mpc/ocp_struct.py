@@ -15,6 +15,8 @@ products take arbitrary leading batch dimensions.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 from torch import nn
@@ -29,6 +31,46 @@ from .ocp_jac import _static_bound_rows, _static_sensitivities
 NJ = ocp.NJ
 
 
+class Layout(NamedTuple):
+    """The integer row and column counts of the condensed OCP for horizon
+    n, flat and chunked (the chunked mode's split point ``half`` and its
+    chunk-A column support ``n_cols_a``, counted without building it)."""
+
+    nx: int
+    o: int
+    per_step_g: int
+    n_term_g: int
+    per_step_r: int
+    n_term_r: int
+    m_run: int
+    m_r: int
+    m_tail: int
+    n_slack: int
+    n_b_slack: int
+    half: int
+    n_cols_a: int
+
+
+def layout(n: int) -> Layout:
+    """The counts of the JAX package's ``OCPStruct(n, dt)``, which do not
+    depend on dt."""
+    nx = ocp.n_vars(n)
+    o = NJ * (n - 1)
+    per_step_g = MPC_SET_ROWS + 6 + NUM_LINK_SETS * MPC_SET_ROWS + 1
+    n_term_g = MPC_SET_ROWS + 6
+    per_step_r = 15 + 3 + 7 + 2 + 9 + 4   # see ocp._step_local
+    n_term_r = 5 + 6 + 6
+    n_b_slack = 6 + 4 * n                 # ddsl, drs_traj, ddrs, dps_traj, ddps
+    half = (n - 1) // 2
+    # chunk A's columns: u_1..u_half, dslacks + rs0, drs_0..half, ps0, dps_0..half
+    n_cols_a = NJ * half + 7 + (half + 1) + 1 + (half + 1)
+    return Layout(
+        nx=nx, o=o, per_step_g=per_step_g, n_term_g=n_term_g, per_step_r=per_step_r,
+        n_term_r=n_term_r, m_run=(n - 1) * per_step_g + n_term_g,
+        m_r=(n - 1) * per_step_r + n_term_r, m_tail=8 * NJ * (n - 1) + n_b_slack,
+        n_slack=nx - o, n_b_slack=n_b_slack, half=half, n_cols_a=n_cols_a)
+
+
 class OCPStruct(nn.Module):
     """Static structure of the condensed OCP for horizon n, period dt and
     robot (float64 buffers until ``.to()``)."""
@@ -38,22 +80,19 @@ class OCPStruct(nn.Module):
         self.n = n
         self.dt = dt
         self.robot = robot
-        self.nx = ocp.n_vars(n)
-        o = NJ * (n - 1)
-        self.o = o
-        self.per_step_g = MPC_SET_ROWS + 6 + NUM_LINK_SETS * MPC_SET_ROWS + 1
-        self.n_term_g = MPC_SET_ROWS + 6
-        self.per_step_r = 15 + 3 + 7 + 2 + 9 + 4
-        self.n_term_r = 5 + 6 + 6
-        self.m_run = (n - 1) * self.per_step_g + self.n_term_g
-        self.m_r = (n - 1) * self.per_step_r + self.n_term_r
+        lay = layout(n)
+        o = self.o = lay.o
+        self.nx = lay.nx
+        self.per_step_g, self.n_term_g = lay.per_step_g, lay.n_term_g
+        self.per_step_r, self.n_term_r = lay.per_step_r, lay.n_term_r
+        self.m_run, self.m_r = lay.m_run, lay.m_r
+        self.m_tail, self.n_slack = lay.m_tail, lay.n_slack
 
         s = _static_sensitivities(n, dt)
         b_slack = np.concatenate(
             [-s["ddsl"], -s["drs_traj"], -s["ddrs"], -s["dps_traj"], -s["ddps"]]
         )[:, o:]
-        self.m_tail = 8 * NJ * (n - 1) + b_slack.shape[0]
-        self.n_slack = self.nx - o
+        assert b_slack.shape == (lay.n_b_slack, lay.n_slack), b_slack.shape
 
         # float64 (exact) until ``.to(dtype)``: rounding here would stick
         buf = lambda name, a: self.register_buffer(name, torch.as_tensor(a, dtype=torch.float64))

@@ -1,5 +1,7 @@
-"""Batched dense linear algebra (port of ``boundplanner_tpu/ops/linalg.py``)
-and the wrapper of kernel A (``csrc/chol_inverse.cu``).
+"""Batched dense linear algebra (port of ``boundplanner_tpu/ops/linalg.py``:
+the masked Cholesky, triangular solves and inverses, their blocked forms)
+and the wrapper of kernel A (``csrc/chol_inverse.cu``). Every function
+takes matrices (..., n, n) with any leading batch dimensions.
 
 ``kkt_inverse`` is the IPM's factorization: L^{-1} for a batch of SPD
 matrices. On a CPU tensor it runs the plain version below (the masked
@@ -59,6 +61,97 @@ def invert_lower(l):
         mask = (idx < j).to(l.dtype)
         s = ((l[..., j, :] * mask)[..., None, :] @ x)[..., 0, :]
         x[..., j, :] = (eye[j] - s) / l[..., j, j, None]
+    return x
+
+
+def solve_lower(l, b):
+    """Solve L y = b with L lower-triangular (..., n, n), b (..., n):
+    forward substitution, one masked dot product per row."""
+    n = b.shape[-1]
+    idx = torch.arange(n, device=b.device)
+    y = torch.zeros_like(b)
+    for j in range(n):
+        mask = (idx < j).to(b.dtype)
+        s = (l[..., j, :] * mask * y).sum(-1)
+        y[..., j] = (b[..., j] - s) / l[..., j, j]
+    return y
+
+
+def solve_upper_t(l, b):
+    """Solve L^T x = b (back substitution over the lower factor)."""
+    n = b.shape[-1]
+    idx = torch.arange(n, device=b.device)
+    x = torch.zeros_like(b)
+    for j in range(n - 1, -1, -1):
+        mask = (idx > j).to(b.dtype)
+        s = (l[..., :, j] * mask * x).sum(-1)
+        x[..., j] = (b[..., j] - s) / l[..., j, j]
+    return x
+
+
+def chol_solve(l, b):
+    """Solve (L L^T) x = b given the factor."""
+    return solve_upper_t(l, solve_lower(l, b))
+
+
+def spd_solve(a, b):
+    """Solve the SPD system a x = b through the masked Cholesky (pivot clamp
+    1e-30)."""
+    return chol_solve(cholesky_masked(a), b)
+
+
+def _factor_panel(p, nb: int):
+    """Factor the nb columns of the panel (..., n-k, nb) (rows k.. of
+    columns k..k+nb), column loop with masked updates."""
+    rows = torch.arange(p.shape[-2], device=p.device)
+    cols = torch.arange(nb, device=p.device)
+    p = p.clone()
+    for jj in range(nb):
+        d = torch.sqrt(torch.clamp(p[..., jj, jj], min=1e-30))[..., None]
+        col = torch.where(rows > jj, p[..., :, jj] / d, 0.0)
+        row = torch.where(cols > jj, p[..., jj, :] / d, 0.0)
+        p = p - col[..., :, None] * row[..., None, :]
+        new_col = torch.where(rows == jj, d, col)
+        p[..., :, jj] = torch.where(rows >= jj, new_col, p[..., :, jj])
+    return p
+
+
+def blocked_cholesky(a, nb: int = 34):
+    """Blocked right-looking Cholesky of SPD ``a`` (..., n, n): each panel
+    of nb columns by the column loop, the trailing block by one matmul.
+    n must be divisible by nb."""
+    n = a.shape[-1]
+    if n % nb:
+        raise ValueError(f"blocked_cholesky: n={n} not divisible by nb={nb}")
+    a = a.clone()
+    for k in range(0, n, nb):
+        panel = _factor_panel(a[..., k:, k:k + nb], nb)
+        a[..., k:, k:k + nb] = panel
+        if k + nb < n:
+            l21 = panel[..., nb:, :]
+            a[..., k + nb:, k + nb:] -= l21 @ l21.mT
+    return torch.tril(a)
+
+
+def blocked_invert_lower(l, nb: int = 34):
+    """Blocked inverse of lower-triangular ``l`` (..., n, n): the diagonal
+    blocks by the row loop, then X_ik = -inv(L_ii) sum_j L_ij X_jk by
+    matmuls. n must be divisible by nb."""
+    n = l.shape[-1]
+    if n % nb:
+        raise ValueError(f"blocked_invert_lower: n={n} not divisible by nb={nb}")
+    nblk = n // nb
+    blk = lambda t, i, k: t[..., i * nb:(i + 1) * nb, k * nb:(k + 1) * nb]
+    diag_inv = [invert_lower(blk(l, i, i)) for i in range(nblk)]
+    x = torch.zeros_like(l)
+    for i in range(nblk):
+        blk(x, i, i)[...] = diag_inv[i]
+    for k in range(nblk):
+        for i in range(k + 1, nblk):
+            acc = torch.zeros_like(diag_inv[0])
+            for j in range(k, i):
+                acc = acc + blk(l, i, j) @ blk(x, j, k)
+            blk(x, i, k)[...] = -diag_inv[i] @ acc
     return x
 
 

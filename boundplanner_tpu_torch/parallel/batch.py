@@ -1,5 +1,6 @@
-"""Closed-loop rollouts (port of ``_plant_measurement``,
-``closed_loop_rollout``, ``fleet_rollout`` and ``chunked_rollout`` of
+"""Scene batching and closed-loop rollouts (port of ``make_batch_scene``,
+``batched_mpc_tick``, ``_plant_measurement``, ``closed_loop_rollout``,
+``fleet_rollout`` and ``chunked_rollout`` of
 ``boundplanner_tpu/parallel/batch.py``).
 
 The JAX package's ``lax.scan`` over ticks becomes a Python loop with a
@@ -10,13 +11,33 @@ Where the JAX functions take the static ``cfg``, these take the
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ..mpc.bound_mpc import FleetMPC, MPCCarry
-from ..planner.set_finder import ObstacleArrays
+from ..config import MPCParams
+from ..mpc.bound_mpc import FleetMPC, MPCCarry, init_carry
+from ..planner.set_finder import ObstacleArrays, build_obstacle_arrays
 from ..robot import kinematics as kin
+from ..utils.device import DEFAULT_DEVICE, checked_device
 from ..utils.integration import integrate_jerk_step
-from ..utils.tree import tree_map
+from ..utils.tree import to_torch, tree_map, tree_stack
+
+
+def make_batch_scene(paths, p0s, obstacles_list, cfg: MPCParams, device=DEFAULT_DEVICE,
+                     dtype=torch.float32):
+    """Stack per-scene paths (`path.reference_path.build_path`), start poses
+    and obstacle lists into a batched carry and obstacle arrays (leading
+    scene axis) on ``device``, floating leaves in ``dtype``."""
+    device = checked_device(device)
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    carries = [init_carry(p, np.asarray(q), cfg, np_dtype) for p, q in zip(paths, p0s)]
+    obs = [build_obstacle_arrays(o) for o in obstacles_list]
+    return to_torch(tree_stack(carries), device, dtype), to_torch(tree_stack(obs), device, dtype)
+
+
+def batched_mpc_tick(carry: MPCCarry, meas: dict, obs: ObstacleArrays, model: FleetMPC):
+    """One control period for a whole fleet: `FleetMPC.tick`."""
+    return model.tick(carry, meas, obs)
 
 
 def _plant_measurement(q, dq, ddq, jerk, qf, chain):

@@ -26,6 +26,9 @@ from ..utils.tree import to_numpy, to_torch, tree_map, tree_stack
 
 
 def _pad_pow2(batched, k: int, max_batch: int):
+    """Pad the leading axis of a stacked tree of ``k`` calls to the next
+    power of two (at most ``max_batch``) by repeating row 0. Returns
+    (padded tree, width)."""
     if k > max_batch:
         raise ValueError(f"batch of {k} exceeds max_batch={max_batch}; chunk first")
     target = 1
@@ -39,7 +42,7 @@ def _pad_pow2(batched, k: int, max_batch: int):
         reps = np.broadcast_to(leaf[:1], (target - leaf.shape[0],) + leaf.shape[1:])
         return np.concatenate([leaf, reps])
 
-    return tree_map(pad, batched)
+    return tree_map(pad, batched), target
 
 
 class _Ticket:
@@ -84,7 +87,7 @@ class BatchBroker:
 
     def _run(self, key, chunk):
         stacked = tree_stack([t.args for t in chunk])
-        padded = _pad_pow2(stacked, len(chunk), self.max_batch)
+        padded, _ = _pad_pow2(stacked, len(chunk), self.max_batch)
         out = to_numpy(self._fns[key](*to_torch(padded, self.device, self.dtype)))
         for i, t in enumerate(chunk):
             t.result = tree_map(lambda leaf: leaf[i], out)

@@ -1,7 +1,7 @@
 """Randomized-scene fleets: plan on the host over device kernels, stack,
 roll out batched (port of ``boundplanner_tpu/parallel/fleet.py``:
 ``random_scene``, ``plan_scene`` and the builders ``build_fleet``,
-``build_fleet_threaded`` and ``build_fleet_mp``).
+``build_fleet_threaded``, ``build_fleet_sync`` and ``build_fleet_mp``).
 
 Scenes differ in goal and obstacle layout. Each scene's planning (the
 irregular graph search) runs on the host, its numeric leaves as torch on
@@ -123,9 +123,71 @@ def build_fleet(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
     return _stack_fleet(planned, q0, batch, dtype)
 
 
-def build_fleet_sync(*args, **kwargs):
-    raise NotImplementedError(
-        "build_fleet_sync (phase-synchronous broker) is not ported; see ROADMAP.md")
+def build_fleet_sync(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
+                     seed: int = 0, dtype=np.float32, n_workers: int | None = None,
+                     max_batch: int = 256, device=DEFAULT_DEVICE,
+                     plan_dtype=torch.float32):
+    """Phase-synchronous batched fleet planning: ``n_workers`` threads plan
+    draws whose kernel calls meet at a barrier (`sync_broker.PhaseSyncBroker`):
+    the moment every worker waits on a kernel result, all pending calls of a
+    key run as one batched call. The draw scheme is `build_fleet_threaded`'s
+    (draw ``d``: rng seed ``seed + 1000 * d``, planner seed ``seed + d``);
+    the first ``batch`` plans to succeed are kept, stacked in draw order.
+    Every worker is registered before any starts. A worker's error stops the
+    others and is re-raised. Returns (carry_b, q0_b, obs_b, broker);
+    ``broker.stats`` gives the widths achieved."""
+    from .broker import register_planner_kernels
+    from .sync_broker import PhaseSyncBroker
+
+    if n_workers is None:
+        n_workers = min(batch, max_batch)
+    q0 = DEMO_Q0.copy() if q0 is None else np.asarray(q0, float)
+    brk = PhaseSyncBroker(max_batch=max_batch, device=device, dtype=plan_dtype)
+    register_planner_kernels(brk, max_set_size=20)
+
+    results = {}
+    errors = []
+    lock = threading.Lock()
+    counter = {"draw": 0}
+
+    def worker():
+        try:
+            while True:
+                with lock:
+                    if (errors or len(results) >= batch
+                            or counter["draw"] >= batch * 4):
+                        return
+                    counter["draw"] += 1
+                    draw = counter["draw"]
+                rng_i = np.random.default_rng(seed + 1000 * draw)
+                obstacles, goal = random_scene(rng_i, n_obstacles)
+                out = plan_scene(q0, goal, obstacles, seed + draw, cfg, dtype,
+                                 broker=brk, device=device, plan_dtype=plan_dtype)
+                if out is not None:
+                    with lock:
+                        if len(results) < batch:
+                            results[draw] = out
+        except Exception as err:   # a device fault: stop every worker, re-raised below
+            with lock:
+                errors.append(err)
+        finally:
+            brk.worker_exit()
+
+    # register every worker before any starts, so that no early worker sees
+    # a momentarily complete barrier and flushes a narrow batch
+    for _ in range(n_workers):
+        brk.worker_enter()
+    threads = [threading.Thread(target=worker) for _ in range(n_workers)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    if len(results) < batch:
+        raise RuntimeError(f"only {len(results)}/{batch} scenes planned")
+    ordered = [results[k] for k in sorted(results)][:batch]
+    return (*_stack_fleet(ordered, q0, batch, dtype), brk)
 
 
 def _mp_worker_init(counter, n_cpus):

@@ -59,6 +59,13 @@ def build_obstacle_arrays(
     return ObstacleArrays(a=a_arr, b=b_arr, points=pts, mask=mask)
 
 
+def build_obstacle_arrays_np(obstacles, size_increase: float = 0.0,
+                             max_obs: int = MAX_OBS, dtype=np.float64):
+    """`build_obstacle_arrays` under the JAX package's name for it (numpy
+    leaves either way)."""
+    return build_obstacle_arrays(obstacles, size_increase, max_obs, dtype)
+
+
 def _box_rows(upper, lower_neg):
     """Rows [I; -I] with b = [upper; lower_neg], each (N, 3) -> a (N, 6, 3),
     b (N, 6)."""

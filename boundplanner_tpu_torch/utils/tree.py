@@ -45,3 +45,14 @@ def to_numpy(tree):
         lambda t: t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t),
         tree,
     )
+
+
+def host_array(v) -> np.ndarray:
+    """``v`` as a float64 numpy array: a tensor (on any device, also inside
+    a list or tuple) is detached and copied to the host first, where
+    ``np.asarray`` alone would fail on a CUDA tensor."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy().astype(np.float64)
+    if isinstance(v, (list, tuple)):
+        return np.asarray([host_array(x) for x in v], dtype=np.float64)
+    return np.asarray(v, dtype=np.float64)

@@ -6,12 +6,17 @@ Run from the repository root on a machine with one NVIDIA GPU (H100):
     python3 chip_smoke.py [--out DIR]
     python3 chip_smoke.py --only-runtime [--out DIR]
     python3 chip_smoke.py --compare-kernel-b SOURCE [--out DIR]
+    python3 chip_smoke.py --compare-builders [--out DIR]
 
 The second form runs only the runtime phases (13-15 below). The third
 only builds, then times kernel B of SOURCE (another
 tree's ``csrc/line_polytope.cu``, same C entry) against this tree's in
 turns (SOURCE, this, this, SOURCE) at kernel B's folds, and checks that
 both give the same outputs by value; it exits non-zero where they differ.
+The fourth only builds, then plans the fleet of phase 9 with the threaded
+and the phase-synchronous builder in turns (threaded, sync, sync,
+threaded): each run's plans/s, kept draws, broker counters and launches,
+and sound corridors (asserted).
 
 Phases (each asserts; any failure exits non-zero):
 
@@ -70,7 +75,19 @@ Phases (each asserts; any failure exits non-zero):
 14. the same plan through ``MPCNode`` with ``perf_mpc_params()`` in f32,
     the 10 Hz loop, with ``t_comp``/``t_loop`` percentiles;
 15. IK on the card against the CPU, and a checkpoint saved and resumed on
-    the card.
+    the card;
+16. the edges: the error-bound families (``mpc/bounds.py``) and the rest of
+    ``ops/linalg.py`` on the card in f64 against the CPU (1e-10), and the
+    FLOP model (``mpc/flops.py``): MFLOP per solve and the achieved GFLOP/s
+    of the main path and the runtime (reported);
+17. the phase-synchronous builder ``parallel.fleet.build_fleet_sync`` with
+    the settings of phase 9 (2 scenes, 2 workers, f32): sound corridors,
+    both kernels launched, the threaded build's q0 and obstacle arrays;
+    its rate beside phase 9's and the broker's widths;
+18. the port's examples on the card, in this process: ``rviz_bringup`` (3
+    ticks; its telemetry validates against the port's IDL),
+    ``boundplanner_with_mpc_example`` (3 ticks, the EE outside every box)
+    and ``fleet_example`` (one scene, 5 ticks), with their launches.
 
 Every kernel row gives the kernel's time (CUDA events), its plain
 version's, its bound (the larger of the bytes it must move over 3.35 TB/s
@@ -1270,12 +1287,283 @@ def run_runtime(dev):
     return rt64, rt32, parts
 
 
+# the edges phase: the bound families' test cases (tests/test_bounds.py)
+BOUND_CASES = [
+    ("compute_bound_params", (0.3, 1.7, 0.05, 0.12, 0.4, 0.45)),
+    ("compute_bound_params_four", (0.1, 2.0, 0.02, 0.3, 0.7, 0.2, 0.5)),
+    ("compute_bound_params_six", (0.3, 1.7, 0.05, 0.12, 99.0, 0.45)),
+    ("compute_bound_params_three", (0.2, 1.1, 0.04, 0.2, 0.3, -0.8)),
+]
+EDGE_TOL = 1e-10
+# --compare-builders: (scenes, workers) of each in-turns comparison
+COMPARE_FLEETS = ((2, 2), (4, 4))
+EXAMPLE_TICKS = 3        # the examples' MPC ticks (rviz_bringup, planner + MPC)
+FLEET_EXAMPLE_TICKS = 5
+
+
+def card_vs_cpu(fn, dev):
+    """max |fn(card) - fn(cpu)| and max |fn(cpu)| over fn's tensors."""
+    import torch
+
+    def flat(out):
+        return torch.stack(out, -1) if isinstance(out, tuple) else out
+
+    card, cpu = flat(fn(dev)).cpu(), flat(fn(torch.device("cpu")))
+    assert card.shape == cpu.shape, (card.shape, cpu.shape)
+    return float((card - cpu).abs().max()), float(cpu.abs().max())
+
+
+def phase_edges(dev, card, main_res, rt64, rt32):
+    """The bound families and the rest of ``ops/linalg.py`` on the card in
+    f64 against the same calls on the CPU (EDGE_TOL, relative to the
+    largest value where it exceeds 1); the FLOP model's MFLOP per solve and
+    the achieved GFLOP/s of the main path and the runtime (reported)."""
+    import numpy as np
+    import torch
+    from boundplanner_tpu_torch.config import MPCParams, perf_mpc_params
+    from boundplanner_tpu_torch.mpc import bounds
+    from boundplanner_tpu_torch.mpc.flops import solve_flops
+    from boundplanner_tpu_torch.ops import linalg
+
+    f64 = torch.float64
+    rng = np.random.default_rng(23)
+    errs = {}
+    for name, args in BOUND_CASES:
+        errs[name] = card_vs_cpu(lambda d: getattr(bounds, name)(*args, device=d), dev)
+    phi0 = rng.uniform(0.0, 1.0, 64)
+    seg = (phi0, phi0 + rng.uniform(0.5, 2.0, 64), *rng.uniform(0.0, 0.5, (4, 64)))
+    errs["compute_bound_params_batched_64"] = card_vs_cpu(
+        lambda d: bounds.compute_bound_params(*(torch.as_tensor(x) for x in seg), device=d), dev)
+    grid = np.linspace(0.0, 2.0, 33)
+    errs["fourth_order_error_bound"] = card_vs_cpu(
+        lambda d: bounds.fourth_order_error_bound(grid, *BOUND_CASES[1][1], device=d), dev)
+
+    g = rng.normal(size=(4, 136, 136))
+    a = g @ g.transpose(0, 2, 1) + 136 * np.eye(136)
+    l = np.linalg.cholesky(a)
+    b = rng.normal(size=(4, 136))
+    on = lambda x, d: torch.as_tensor(x, dtype=f64, device=d)
+    for name, fn in (
+            ("solve_lower", lambda d: linalg.solve_lower(on(l, d), on(b, d))),
+            ("solve_upper_t", lambda d: linalg.solve_upper_t(on(l, d), on(b, d))),
+            ("chol_solve", lambda d: linalg.chol_solve(on(l, d), on(b, d))),
+            ("spd_solve", lambda d: linalg.spd_solve(on(a, d), on(b, d))),
+            ("blocked_cholesky", lambda d: linalg.blocked_cholesky(on(a, d), nb=34)),
+            ("blocked_invert_lower", lambda d: linalg.blocked_invert_lower(on(l, d), nb=34))):
+        errs[name] = card_vs_cpu(fn, dev)
+
+    flops_perf = solve_flops(perf_mpc_params())
+    flops_dense = solve_flops(MPCParams())
+    solves = {"main_path": (flops_perf, main_res["value"]),
+              "runtime_f32": (flops_perf, 1e3 / rt32["t_comp_ms_p50"]),
+              "runtime_f64": (flops_dense, 1e3 / rt64["t_comp_ms_p50"])}
+    row = {"phase": "edges", "card": card,
+           "max_abs_err_card_vs_cpu": {k: v[0] for k, v in errs.items()},
+           "mflop_per_solve": {"perf_flat": flops_perf["total"] / 1e6,
+                               "default_dense": flops_dense["total"] / 1e6},
+           "mflop_per_solve_parts_perf": {k: v / 1e6 for k, v in flops_perf.items()},
+           "achieved_gflop_per_s": {k: f["total"] * rate / 1e9
+                                    for k, (f, rate) in solves.items()},
+           "solves_per_s": {k: rate for k, (_, rate) in solves.items()}}
+    emit(row)
+    for name, (err, scale) in errs.items():
+        assert err <= EDGE_TOL * max(1.0, scale), f"{name} on the card disagrees: {err}"
+    return row
+
+
+def phase_sync_fleet(cfg, dev, plan_row, threaded):
+    """The phase-synchronous builder on the card (f32) with the settings of
+    `phase_plan_fleet`: sound corridors, both kernels launched, q0 and the
+    obstacle arrays those of the threaded build's draws; its rate beside
+    the threaded builder's from the same run and the broker's widths
+    (reported; plan values are not compared: width-2 f32 batches may plan
+    differently, fault (e))."""
+    import numpy as np
+    import torch
+    from boundplanner_tpu_torch.ops.cuda_proj import line_polytope_projection
+    from boundplanner_tpu_torch.ops.linalg import kkt_inverse
+    from boundplanner_tpu_torch.parallel.fleet import build_fleet_sync
+
+    kkt_inverse.launches = 0
+    line_polytope_projection.launches = 0
+    t0 = time.perf_counter()
+    carry, q0, obs, brk = build_fleet_sync(
+        PLAN_SCENES, cfg, seed=PLAN_SEED, n_obstacles=PLAN_OBSTACLES, dtype=np.float32,
+        n_workers=PLAN_THREADS, device=dev, plan_dtype=torch.float32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"chol_inverse": kkt_inverse.launches,
+                "line_polytope": line_polytope_projection.launches}
+    sound = [corridor_ok(carry, obs, i) for i in range(PLAN_SCENES)]
+    draws = kept_draws(obs)
+    _, t_q0, t_obs = threaded
+    t_draws = plan_row["kept_draws"]
+    same = {d: all(np.array_equal(getattr(obs, f)[i], getattr(t_obs, f)[t_draws.index(d)])
+                   for f in obs._fields)
+            for i, d in enumerate(draws) if d in t_draws}
+    row = {"phase": "sync_fleet", "scenes": PLAN_SCENES, "workers": PLAN_THREADS,
+           "wall_s": wall, "plans_per_s": PLAN_SCENES / wall,
+           "threaded_plans_per_s": plan_row["plans_per_s"],
+           "kept_draws": draws, "threaded_kept_draws": t_draws,
+           "broker": brk.stats, "launches": launches, "corridors_sound": sum(sound),
+           "segments": [int(n) + 1 for n in carry.path.num_sectors]}
+    emit(row)
+    assert launches["chol_inverse"] > 0 and launches["line_polytope"] > 0, launches
+    assert all(sound), f"corridor invariants fail for scenes {[i for i, ok in enumerate(sound) if not ok]}"
+    assert None not in draws, f"a scene is no draw of the draw scheme: {draws}"
+    assert np.array_equal(q0, t_q0), "q0 differs from the threaded build's"
+    assert same and all(same.values()), f"obstacle arrays differ from the threaded build's: {same}"
+    return row
+
+
+def phase_compare_builders(cfg, dev):
+    """The threaded (`build_fleet_threaded`, linger 30 ms) and the
+    phase-synchronous (`build_fleet_sync`) builders in turns (threaded,
+    sync, sync, threaded) on fleets of `phase_plan_fleet`'s settings, f32,
+    at each (scenes, workers) of COMPARE_FLEETS."""
+    import numpy as np
+    import torch
+    from boundplanner_tpu_torch.parallel.fleet import build_fleet_sync, build_fleet_threaded
+
+    common = dict(seed=PLAN_SEED, n_obstacles=PLAN_OBSTACLES, dtype=np.float32, device=dev,
+                  plan_dtype=torch.float32)
+    rows = []
+    for scenes, workers in COMPARE_FLEETS:
+        builders = {
+            "threaded": lambda: build_fleet_threaded(scenes, cfg, n_threads=workers,
+                                                     linger=0.030, **common),
+            "sync": lambda: build_fleet_sync(scenes, cfg, n_workers=workers, **common),
+        }
+        for turn, name in enumerate(("threaded", "sync", "sync", "threaded")):
+            (carry, _, obs, brk), wall, launches = counted(builders[name])
+            sound = [corridor_ok(carry, obs, i) for i in range(scenes)]
+            batches = brk.batches_run
+            row = {"phase": "compare_builders", "turn": turn, "builder": name,
+                   "scenes": scenes, "workers": workers, "wall_s": wall,
+                   "plans_per_s": scenes / wall, "kept_draws": kept_draws(obs),
+                   "calls_served": brk.calls_served, "batches_run": batches,
+                   "mean_width": brk.calls_served / batches if batches else 0.0,
+                   "launches": launches, "corridors_sound": sum(sound)}
+            emit(row)
+            assert all(sound), f"{name}: corridor invariants fail"
+            rows.append(row)
+    return rows
+
+
+def recording_publisher():
+    """A headless `ros_compat.RosPublisher` that keeps each tick's record
+    and payload."""
+    from boundplanner_tpu_torch.ros_compat import RosPublisher
+
+    class Recording(RosPublisher):
+        def __init__(self):
+            super().__init__()
+            self.ticks = []
+
+        def publish_tick(self, record):
+            msg = super().publish_tick(record)
+            self.ticks.append((record, msg))
+            return msg
+
+    return Recording()
+
+
+def typed_payload(record):
+    """`ros_compat.to_mpc_data_msg` into attribute-bag message classes,
+    returned as the payload dict of the fields it set."""
+    from boundplanner_tpu_torch.ros_compat import to_mpc_data_msg
+
+    class Vector:
+        def __init__(self, x=()):
+            self.x = list(x)
+
+    class MPCData:
+        def __init__(self):
+            object.__setattr__(self, "fields", {})
+
+        def __setattr__(self, key, value):
+            self.fields[key] = value
+
+    msg = to_mpc_data_msg({"MPCData": MPCData, "Vector": Vector}, record)
+    unwrap = lambda v: (v.x if isinstance(v, Vector) else
+                        [e.x for e in v] if isinstance(v, list) and v and isinstance(v[0], Vector)
+                        else v)
+    return {k: unwrap(v) for k, v in msg.fields.items()}
+
+
+def counted(fn):
+    """fn() with the kernels' counts set to 0 just before it; returns
+    (result, seconds, {kernel: launches})."""
+    import torch
+    from boundplanner_tpu_torch.ops.cuda_proj import line_polytope_projection
+    from boundplanner_tpu_torch.ops.linalg import kkt_inverse
+
+    kkt_inverse.launches = 0
+    line_polytope_projection.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {"chol_inverse": kkt_inverse.launches,
+                                           "line_polytope": line_polytope_projection.launches}
+
+
+def phase_examples(dev):
+    """The port's examples on the card, in this process: ``rviz_bringup``
+    (EXAMPLE_TICKS ticks; its JSON and typed telemetry validate against the
+    port's IDL), ``boundplanner_with_mpc_example`` (EXAMPLE_TICKS ticks: a
+    finite EE trajectory outside every box of the scene) and
+    ``fleet_example`` (one scene, FLEET_EXAMPLE_TICKS ticks), each with its
+    kernel launches."""
+    import numpy as np
+    from boundplanner_tpu_torch import idl
+    from boundplanner_tpu_torch.examples import (boundplanner_with_mpc_example,
+                                                 fleet_example, rviz_bringup)
+    from boundplanner_tpu_torch.examples.scene import example_obstacles
+
+    schema = idl.load_msg("MPCData")
+    pub = recording_publisher()
+    ticks, rviz_s, rviz_launches = counted(
+        lambda: rviz_bringup.main(max_ticks=EXAMPLE_TICKS, device=dev, pub=pub))
+    assert ticks == EXAMPLE_TICKS, f"rviz_bringup published {ticks} ticks"
+    for record, msg in pub.ticks:
+        assert set(msg) <= set(schema), set(msg) - set(schema)
+        # the JSON transport flattens phi, dphi and fails to scalars
+        idl.validate(schema, {k: v for k, v in msg.items() if k not in ("phi", "dphi", "fails")})
+        idl.validate(schema, typed_payload(record))
+        assert np.isfinite(msg["q"]).all()
+
+    (traj, p_via), mpc_s, mpc_launches = counted(
+        lambda: boundplanner_with_mpc_example.main(max_ticks=EXAMPLE_TICKS, device=dev))
+    assert traj.shape == (EXAMPLE_TICKS, 3) and np.isfinite(traj).all(), traj
+    for ob in example_obstacles():
+        inside = np.all((traj > np.asarray(ob[:3]) + 1e-5) & (traj < np.asarray(ob[3:]) - 1e-5),
+                        axis=1)
+        assert not inside.any(), f"EE inside the box {ob}"
+
+    fleet, fleet_s, fleet_launches = counted(
+        lambda: fleet_example.main(batch=1, ticks=FLEET_EXAMPLE_TICKS, device=dev))
+    assert np.isfinite(fleet["success_rate"]) and np.isfinite(fleet["mean_phi_final"]), fleet
+
+    by_example = {"rviz_bringup": rviz_launches,
+                  "boundplanner_with_mpc_example": mpc_launches,
+                  "fleet_example": fleet_launches}
+    total = {k: sum(v[k] for v in by_example.values()) for k in ("chol_inverse", "line_polytope")}
+    row = {"phase": "examples", "rviz_ticks": ticks, "rviz_s": rviz_s,
+           "planner_mpc_ticks": int(traj.shape[0]), "planner_mpc_s": mpc_s,
+           "planner_mpc_vias": len(p_via), "fleet": fleet, "fleet_s": fleet_s,
+           "launches": total, "launches_by_example": by_example}
+    emit(row)
+    assert total["chol_inverse"] > 0 and total["line_polytope"] > 0, total
+    return row
+
+
 def main(argv):
     out_dir = compare_b = None
     if "--out" in argv:
         out_dir = argv[argv.index("--out") + 1]
     if "--compare-kernel-b" in argv:
         compare_b = os.path.abspath(argv[argv.index("--compare-kernel-b") + 1])
+    compare_builders = "--compare-builders" in argv
     only_runtime = "--only-runtime" in argv
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "boundplanner_tpu_torch")):
@@ -1315,6 +1603,13 @@ def main(argv):
         run_runtime(dev)
         return 0
     cfg = perf_mpc_params()
+    if compare_builders:
+        rows = phase_compare_builders(cfg, dev)
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, "compare_builders.json"), "w") as f:
+                json.dump({"card": card, "rows": rows}, f, indent=1)
+        return 0
     payload = load(FLEET)
     real = real_tick_batch(payload, cfg, dev)
     if compare_b:
@@ -1333,11 +1628,14 @@ def main(argv):
     a_plan = phase_kernel_a_planner(rng, dev)
     phase_planner_f64(cfg, dev)
     spath = phase_device_search(dev)
-    _, plan = phase_plan_fleet(cfg, dev, payload)
+    threaded, plan = phase_plan_fleet(cfg, dev, payload)
     fleet, mp_row = phase_fleet_mp(cfg, dev)
     rollout = phase_planned_rollout(fleet, cfg, dev)
     multi = phase_multi_gpu(payload, cfg, dev)
     rt64, rt32, parts = run_runtime(dev)
+    edges = phase_edges(dev, card, main_res, rt64, rt32)
+    sync = phase_sync_fleet(cfg, dev, plan, threaded)
+    examples = phase_examples(dev)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "roofline_share",
             "library_ms")
@@ -1352,6 +1650,10 @@ def main(argv):
          "launches_multi_gpu_per_rank": [r["chol_inverse"] for r in multi["launches_per_rank"]],
          "launches_runtime_f64": rt64["launches"]["chol_inverse"],
          "launches_runtime_f32": rt32["launches"]["chol_inverse"],
+         "launches_sync_fleet": sync["launches"]["chol_inverse"],
+         "launches_examples": examples["launches"]["chol_inverse"],
+         "launches_examples_by_example": {name: n["chol_inverse"] for name, n
+                                          in examples["launches_by_example"].items()},
          **summary(a[0]), "launch_only_ms": a[0]["launch_only_ms"],
          "library": a[0]["library"],
          "shapes": [{"shape": r["shape"], "dtype": r["dtype"], **summary(r),
@@ -1367,6 +1669,10 @@ def main(argv):
          "launches_multi_gpu_per_rank": [r["line_polytope"] for r in multi["launches_per_rank"]],
          "launches_runtime_f64": rt64["launches"]["line_polytope"],
          "launches_runtime_f32": rt32["launches"]["line_polytope"],
+         "launches_sync_fleet": sync["launches"]["line_polytope"],
+         "launches_examples": examples["launches"]["line_polytope"],
+         "launches_examples_by_example": {name: n["line_polytope"] for name, n
+                                          in examples["launches_by_example"].items()},
          **summary(b), "launch_only_ms": b["launch_only_ms"],
          "bound_ms_all_rows": b["bound_ms_all_rows"],
          "library": None,
@@ -1380,7 +1686,8 @@ def main(argv):
             json.dump({"card": card, "main": main_res, "main_routes": routes, "plan_fleet": plan,
                        "device_search": spath, "fleet_mp": mp_row, "planned_rollout": rollout,
                        "multi_gpu": multi, "runtime_f64": rt64, "runtime_f32": rt32,
-                       "runtime_parts": parts, **kernels}, f, indent=1)
+                       "runtime_parts": parts, "edges": edges, "sync_fleet": sync,
+                       "examples": examples, **kernels}, f, indent=1)
         with open(path + ".log") as src, open(os.path.join(out_dir, "nvcc.log"), "w") as dst:
             dst.write(src.read())
     print(card, flush=True)

@@ -14,8 +14,10 @@ setup(
         "boundplanner_tpu_torch", "boundplanner_tpu_torch.*",
     ]),
     # the PyTorch/CUDA port builds its kernels from these sources at first
-    # use; data/ holds recorded inputs that its tests replay
-    package_data={"boundplanner_tpu_torch": ["csrc/*.cu", "data/*.npz"]},
+    # use; data/ holds recorded inputs that its tests replay; idl/ its
+    # copies of the ROS interface schemas
+    package_data={"boundplanner_tpu_torch": ["csrc/*.cu", "data/*.npz", "idl/msg/*.msg",
+                                             "idl/srv/*.srv"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

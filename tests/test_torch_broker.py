@@ -153,14 +153,15 @@ def test_brokered_planners_match_direct():
 
 
 def test_unported_builders_raise(monkeypatch):
-    """The phase-synchronous builder is not ported. The process-pool builder
-    is: on a machine without a card its default device raises the card's
-    error at once, and ``build_and_save`` sends 512 scenes or more to it."""
+    """The phase-synchronous and the process-pool builders are ported (no
+    builder raises ``NotImplementedError`` any more): on a machine without a
+    card their default device raises the card's error at once, and
+    ``build_and_save`` sends 512 scenes or more to the process pool."""
     cfg = perf_mpc_params()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fleet.build_fleet_sync(4, cfg)
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fleet.build_fleet_sync(4, cfg)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fleet.build_fleet_mp(4, cfg)
 

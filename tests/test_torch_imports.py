@@ -43,7 +43,9 @@ def imported_modules(path):
 def test_port_sources_found():
     names = {os.path.relpath(p, ROOT) for p in port_sources()}
     assert "chip_smoke.py" in names
-    assert os.path.join("boundplanner_tpu_torch", "mpc", "bound_mpc.py") in names
+    for rel in (("mpc", "bound_mpc.py"), ("idl", "__init__.py"), ("ros_compat.py",),
+                ("parallel", "sync_broker.py"), ("examples", "rviz_bringup.py")):
+        assert os.path.join("boundplanner_tpu_torch", *rel) in names, rel
     assert len(names) > 20
 
 

@@ -18,11 +18,12 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-from boundplanner_tpu_torch.ops import mvie as tmvie
 from boundplanner_tpu_torch.ops import qp as tqp
 
 jqp = importlib.import_module("boundplanner_tpu.ops.qp")
 jmvie = importlib.import_module("boundplanner_tpu.ops.mvie")
+# the module, not the function of the same name that ``ops`` exports
+tmvie = importlib.import_module("boundplanner_tpu_torch.ops.mvie")
 
 torch.set_num_threads(1)
 TOL = 1e-8
