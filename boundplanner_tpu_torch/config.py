@@ -4,10 +4,12 @@
 defaults and order. ``tests/test_torch_config.py`` holds the two equal.
 
 The knobs keep the JAX package's names, including those of TPU-only
-routes (``pallas_kkt``, ``esc_pallas``); ``mpc.solver.check_supported``
-says which branches the port runs. The reasons behind each default and
-the measurements that chose them are documented in the JAX package's
-``config.py``.
+routes (``pallas_kkt``, ``esc_pallas``), which choose nothing in the port:
+it factors every KKT matrix through one wrapper, kernel A on the card.
+The port runs every combination the JAX package runs, and
+``mpc.solver.check_supported`` rejects those it rejects. The reasons
+behind each default and the measurements that chose them are documented
+in the JAX package's ``config.py``.
 """
 
 from __future__ import annotations

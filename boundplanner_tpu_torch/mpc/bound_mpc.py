@@ -455,7 +455,9 @@ class FleetMPC(nn.Module):
     (or ``model(...)``) runs one control period for a batch of scenes. The
     factory keywords work as those of ``torch.nn`` layers, with the card
     and float32 as defaults: the structure is built in float64 and then
-    cast to ``dtype`` on ``device`` (the fleet's)."""
+    cast to ``dtype`` on ``device`` (the fleet's), with the causal chunk
+    split when ``cfg`` asks for it. A combination the JAX package rejects
+    raises ``ValueError`` here (`solver.check_supported`)."""
 
     def __init__(self, cfg: MPCParams, device=DEFAULT_DEVICE, dtype=torch.float32):
         super().__init__()

@@ -5,8 +5,8 @@ Counts the dominant dense linear algebra with true loop trip counts
 (matmul = 2mnk), for the dense and the block-banded (``struct_ocp``)
 routes, flat and chunked. The AD tangent sweeps and the per-step
 reference/error math are excluded from both. The counts are the JAX
-package's, key for key: the chunked layout's integers come from
-`ocp_struct.layout`, which builds nothing (the port runs flat mode only).
+package's, key for key: the layout's integers come from
+`ocp_struct.layout`, which counts them without building the structure.
 
     python -m boundplanner_tpu_torch.mpc.flops
 """

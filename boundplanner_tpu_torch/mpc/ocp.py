@@ -16,6 +16,7 @@ static sensitivities on the working device and dtype.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,6 +32,17 @@ N_Z = 61
 
 def n_vars(n: int) -> int:
     return NJ * (n - 1) + 6 + 1 + n + 1 + n
+
+
+class Decision(NamedTuple):
+    """The decision vector's parts with the slack trajectories integrated."""
+
+    u: torch.Tensor        # (N, 7) full jerk sequence (u[0] = measured jerk)
+    dslacks: torch.Tensor  # (6,)
+    rslacks: torch.Tensor  # (N,)
+    drs: torch.Tensor      # (N,)
+    pslacks: torch.Tensor  # (N,)
+    dps: torch.Tensor      # (N,)
 
 
 def unpack(x, u0, n: int):
@@ -308,6 +320,19 @@ def evaluate(x, params, cfg: MPCParams, st):
     residuals = torch.cat([r_steps.reshape(-1), r_term])
     constraints = torch.cat([g_steps.reshape(-1), g_term, st.tail_values(traj)])
     return residuals, constraints
+
+
+def cost_residuals(x, params, cfg: MPCParams, st):
+    return evaluate(x, params, cfg, st)[0]
+
+
+def cost(x, params, cfg: MPCParams, st):
+    r = cost_residuals(x, params, cfg, st)
+    return torch.sum(r * r)
+
+
+def constraints(x, params, cfg: MPCParams, st):
+    return evaluate(x, params, cfg, st)[1]
 
 
 def n_constraints(cfg: MPCParams) -> int:

@@ -203,9 +203,14 @@ def evaluate_with_jac_structured(x, params, cfg: MPCParams, st):
     """(r, g_full, J_r, J_g_runtime) of one scene: values identical to
     `ocp.evaluate`; Jacobians for the residuals and the RUNTIME constraint
     rows (the first ``st.m_run``). The static tail's Jacobian is applied
-    structurally inside the QP (`ocp_struct`)."""
-    if cfg.struct_link or not cfg.struct_tail:
-        raise NotImplementedError("only the flat struct_tail layout is ported")
+    structurally inside the QP (`ocp_struct`).
+
+    ``struct_tail=False`` appends the static rows to J_g (every row, for a
+    dense QP). ``struct_link=True`` reorders g to [dense runtime (set, band,
+    phi, terminal) | link | tail] and returns (r, g, J_r, J_g_dense,
+    acol_u): the link rows are applied through their factorization
+    (`ocp_struct.OCPStruct.link_apply`), acol_u (n-1, 6, 3, o) their
+    u-column support."""
     n = cfg.n
     nx = ocp.n_vars(n)
     dtype = x.dtype
@@ -265,12 +270,13 @@ def evaluate_with_jac_structured(x, params, cfg: MPCParams, st):
 
     jg_set = jg_nl[:, :15, :] - dps_traj[:, None, :]
     jg_band = jg_nl[:, 15:21, :] - drs_traj[:, None, :]
-    ab = torch.einsum("lri,klij->klrj", params["a_set_joints"], acol).reshape(
-        n - 1, NUM_LINK_SETS * MPC_SET_ROWS, NJ
-    )
-    ddsl_link = torch.repeat_interleave(ddsl[:NUM_LINK_SETS], MPC_SET_ROWS, dim=0)
-    jg_link = torch.einsum("krj,kjx->krx", ab, dq_r) - ddsl_link[None]
-    jg_steps = torch.cat([jg_set, jg_band, jg_link, jg_nl[:, 21:22, :]], dim=1)
+    if not cfg.struct_link:
+        ab = torch.einsum("lri,klij->klrj", params["a_set_joints"], acol).reshape(
+            n - 1, NUM_LINK_SETS * MPC_SET_ROWS, NJ
+        )
+        ddsl_link = torch.repeat_interleave(ddsl[:NUM_LINK_SETS], MPC_SET_ROWS, dim=0)
+        jg_link = torch.einsum("krj,kjx->krx", ab, dq_r) - ddsl_link[None]
+        jg_steps = torch.cat([jg_set, jg_band, jg_link, jg_nl[:, 21:22, :]], dim=1)
 
     # terminal rows: 61-tangent local jacfwd at the last step
     g_term = ocp._terminal_local(zs[-1], params, cfg)
@@ -298,6 +304,19 @@ def evaluate_with_jac_structured(x, params, cfg: MPCParams, st):
 
     residuals = torch.cat([r_steps.reshape(-1), r_term])
     j_res = torch.cat([jr_steps.reshape(-1, nx), jr_term])
-    constraints = torch.cat([g_steps.reshape(-1), g_term, st.tail_values(traj)])
+    g_tail = st.tail_values(traj)
+
+    if cfg.struct_link:
+        link = slice(21, 21 + NUM_LINK_SETS * MPC_SET_ROWS)
+        g_dense = torch.cat([g_steps[:, :21].reshape(-1), g_steps[:, link.stop], g_term])
+        constraints = torch.cat([g_dense, g_steps[:, link].reshape(-1), g_tail])
+        jg_dense = torch.cat([torch.cat([jg_set, jg_band], dim=1).reshape(-1, nx),
+                              jg_nl[:, 21, :], jg_term])
+        acol_u = torch.einsum("klij,kjx->klix", acol, dq_r)[..., : NJ * (n - 1)]
+        return residuals, constraints, j_res, jg_dense, acol_u
+
+    constraints = torch.cat([g_steps.reshape(-1), g_term, g_tail])
     j_run = torch.cat([jg_steps.reshape(-1, nx), jg_term])
+    if not cfg.struct_tail:
+        j_run = torch.cat([j_run, st.tail_rows])
     return residuals, constraints, j_res, j_run

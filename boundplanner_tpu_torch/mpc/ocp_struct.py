@@ -1,11 +1,13 @@
-"""Block-banded structure of the condensed OCP, flat mode
-(port of ``boundplanner_tpu/mpc/ocp_struct.py`` with
-``struct_chunked=False``, the adopted configuration).
+"""Block-banded structure of the condensed OCP
+(port of ``boundplanner_tpu/mpc/ocp_struct.py``).
 
 850 of the 2439 constraint rows (variable bounds and slack nonnegativity)
 have constant Jacobians. The QP applies them structurally: per-joint
 impulse-response products instead of dense rows, and their Gram as
-per-joint 14x14 blocks + a diagonal + a 38x38 slack block.
+per-joint 14x14 blocks + a diagonal + a 38x38 slack block. The 1260
+link-collision rows factor as A_l @ acol_u - e_dslack (``link_*``,
+``struct_link``). In chunked mode (``struct_chunked``) the runtime Grams
+split at the causal support of the first half of the horizon.
 
 ``OCPStruct`` is an ``nn.Module`` holding every static tensor of the tick
 as a buffer (structure matrices, sensitivities, limits, and the robot
@@ -75,11 +77,12 @@ class OCPStruct(nn.Module):
     """Static structure of the condensed OCP for horizon n, period dt and
     robot (float64 buffers until ``.to()``)."""
 
-    def __init__(self, n: int, dt: float, robot: str = "iiwa14"):
+    def __init__(self, n: int, dt: float, robot: str = "iiwa14", chunked: bool = False):
         super().__init__()
         self.n = n
         self.dt = dt
         self.robot = robot
+        self.chunked = chunked
         lay = layout(n)
         o = self.o = lay.o
         self.nx = lay.nx
@@ -87,6 +90,11 @@ class OCPStruct(nn.Module):
         self.per_step_r, self.n_term_r = lay.per_step_r, lay.n_term_r
         self.m_run, self.m_r = lay.m_run, lay.m_r
         self.m_tail, self.n_slack = lay.m_tail, lay.n_slack
+        # struct_link row split: dense runtime rows (set/band/phi/terminal)
+        # against the factored link rows
+        self.m_link = (n - 1) * NUM_LINK_SETS * MPC_SET_ROWS
+        self.m_dense = self.m_run - self.m_link
+        self.half = lay.half
 
         s = _static_sensitivities(n, dt)
         b_slack = np.concatenate(
@@ -109,7 +117,53 @@ class OCPStruct(nn.Module):
         buf("q_lb", q_lb)
         buf("dq_lim", dq_lim)
         buf("col_sizes", col_sizes)
+        # chunk A (steps 1..half): its static column support, u_1..u_half,
+        # dslacks + rs0, drs_0..half, ps0, dps_0..half
+        half = self.half
+        cols = list(range(NJ * half)) + list(range(o, o + 7 + half + 1))
+        cols += [o + 7 + n] + list(range(o + 8 + n, o + 8 + n + half + 1))
+        assert len(cols) == lay.n_cols_a
+        self.register_buffer("cols_a", torch.as_tensor(cols, dtype=torch.long))
         self.chain = Chain(robot)
+
+    # ---- factored link-collision rows ------------------------------------
+    # J_link[k, l, r, :] = A[l, r, :] @ acol_u[k, l] - e_{dslack_l}, with
+    # A = a_set_joints (..., 6, 15, 3) and acol_u (..., n-1, 6, 3, o) the
+    # u-columns of d p_col / dx. Row order k-major, then link, then set row.
+
+    def link_apply(self, acol_u, a_joints, v):
+        """J_link @ v: (..., nx) -> (..., m_link)."""
+        o = self.o
+        t = torch.einsum("...klix,...x->...kli", acol_u, v[..., :o])
+        rows = torch.einsum("...lri,...kli->...klr", a_joints, t)
+        return (rows - v[..., None, o:o + NUM_LINK_SETS, None]).flatten(-3)
+
+    def link_apply_t(self, acol_u, a_joints, y):
+        """J_link^T @ y: (..., m_link) -> (..., nx)."""
+        n, o = self.n, self.o
+        yk = y.reshape(y.shape[:-1] + (n - 1, NUM_LINK_SETS, MPC_SET_ROWS))
+        t = torch.einsum("...lri,...klr->...kli", a_joints, yk)
+        vu = torch.einsum("...klix,...kli->...x", acol_u, t)
+        vds = -torch.sum(yk, dim=(-3, -1))
+        rest = y.new_zeros(y.shape[:-1] + (self.nx - o - NUM_LINK_SETS,))
+        return torch.cat([vu, vds, rest], dim=-1)
+
+    def link_gram(self, acol_u, a_joints, w):
+        """J_link^T diag(w) J_link: (..., m_link) -> (..., nx, nx)."""
+        n, o, nl = self.n, self.o, NUM_LINK_SETS
+        lead = w.shape[:-1]
+        wk = w.reshape(lead + (n - 1, nl, MPC_SET_ROWS))
+        inner = torch.einsum("...lri,...klr,...lrj->...klij", a_joints, wk, a_joints)
+        half = torch.einsum("...klij,...kljx->...klix", inner, acol_u)
+        uu = torch.einsum("...klix,...kliy->...xy", acol_u, half)
+        # the rows' -e_{dslack_l} against the u part and against themselves
+        cross = -torch.einsum("...lri,...klr,...klix->...lx", a_joints, wk, acol_u)
+        out = w.new_zeros(lead + (self.nx, self.nx))
+        out[..., :o, :o] = uu
+        out[..., o:o + nl, :o] = cross
+        out[..., :o, o:o + nl] = cross.mT
+        out[..., o:o + nl, o:o + nl] = torch.diag_embed(torch.sum(wk, dim=(-3, -1)))
+        return out
 
     # ---- static tail: g_tail(x) = [bound rows; slack rows] --------------
 
@@ -180,24 +234,56 @@ class OCPStruct(nn.Module):
             dim=-1,
         )
 
-    # ---- runtime Grams (flat: one full-width product each) ---------------
+    # ---- runtime Grams, flat or with the causal chunk split --------------
 
     def gram_g(self, g_run, w, lowp: bool = False):
         """G_run^T diag(w) G_run; ``lowp``: the bf16 Gram of
         `ops.qp.dense_gram` (G and w rounded to bfloat16, the rest in
-        float32, as the JAX package's jitted Gram)."""
-        if lowp:
-            return dense_gram(g_run, w, lowp=True)
-        return g_run.mT @ (g_run * w[..., None])
+        float32, as the JAX package's jitted Gram). Chunked, ``g_run`` must
+        carry the full m_run row layout (a partial one would be clipped
+        into a wrong Gram): it raises otherwise."""
+        return self._gram(g_run, self._rows_a(g_run, self.per_step_g, self.m_run, "gram_g"),
+                          w, lowp)
 
     def gram_r(self, j_res):
-        """J_r^T J_r, the Gauss-Newton Hessian's dominant product."""
-        return j_res.mT @ j_res
+        """J_r^T J_r, the Gauss-Newton Hessian's dominant product (the same
+        row-layout rule as :meth:`gram_g`, m_r rows when chunked)."""
+        return self._gram(j_res, self._rows_a(j_res, self.per_step_r, self.m_r, "gram_r"),
+                          None, False)
+
+    def _rows_a(self, mat, per_step: int, m_full: int, name: str) -> int:
+        """Chunk A's row count (0 when flat), after checking the layout."""
+        if not self.chunked:
+            return 0
+        if mat.shape[-2] != m_full:
+            raise ValueError(
+                f"{name}(chunked=True) needs the full {m_full}-row layout, got "
+                f"{mat.shape[-2]} rows; build the OCPStruct with chunked=False for "
+                "partial-row matrices")
+        return self.half * per_step
+
+    def _gram(self, mat, rows_a: int, w, lowp: bool):
+        """mat^T diag(w) mat (w None: unweighted); rows_a > 0 splits off the
+        first rows_a rows, gathered on their column support ``cols_a``."""
+        def gram(a, wa):
+            if wa is None:
+                return a.mT @ a
+            if lowp:
+                return dense_gram(a, wa, lowp=True)
+            return a.mT @ (a * wa[..., None])
+
+        if rows_a == 0:
+            return gram(mat, w)
+        a = mat[..., :rows_a, :][..., self.cols_a]
+        b = mat[..., rows_a:, :]
+        wa, wb = (None, None) if w is None else (w[..., :rows_a], w[..., rows_a:])
+        out = gram(b, wb)
+        ca = self.cols_a
+        out[..., ca[:, None], ca[None, :]] += gram(a, wa)
+        return out
 
 
 def build(n: int, dt: float, robot: str = "iiwa14", chunked: bool = False) -> OCPStruct:
-    """The flat structure; the dense routes (``struct_ocp=False``) build it
-    too, for the chain, the limits and ``tail_values``."""
-    if chunked:
-        raise NotImplementedError("struct_chunked=True is not ported (flat mode only)")
-    return OCPStruct(n, dt, robot)
+    """The structure, flat or chunked; the dense routes (``struct_ocp=False``)
+    build it too, for the chain, the limits and ``tail_values``."""
+    return OCPStruct(n, dt, robot, chunked)

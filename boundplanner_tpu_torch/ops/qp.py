@@ -1,6 +1,7 @@
-"""Batched dense convex-QP solver: Mehrotra predictor-corrector IPM
-(port of ``solve_qp``, ``solve_projection``, ``solve_line_projection`` and
-``solve_feasibility`` of ``boundplanner_tpu/ops/qp.py``).
+"""Batched dense convex-QP solvers: the Mehrotra predictor-corrector IPM
+and OSQP-style ADMM (port of ``solve_qp``, ``solve_qp_admm``,
+``solve_projection``, ``solve_line_projection`` and ``solve_feasibility``
+of ``boundplanner_tpu/ops/qp.py``).
 
 Problem form, one per row of the leading batch axis B::
 
@@ -9,11 +10,13 @@ Problem form, one per row of the leading batch axis B::
 
 Iteration is a fixed-trip loop with a per-problem ``done`` mask (no host
 sync inside), so a batch stays in lockstep like the JAX ``fori_loop``.
-Only the branches the MPC's configurations reach are ported: the plain
-dense form, the structured static tail (``struct``), the bfloat16 search
-directions and Grams (``lowp``, ``lowp_rd``) and Gondzio correctors. The KKT
-factorization always goes through ``ops.linalg.kkt_inverse``, which picks
-kernel A or its plain version by device.
+Every branch of the JAX solvers is ported: the dense form, the structured
+static tail (``struct``) with its factored link rows (``link``), the
+bfloat16 search directions and Grams (``lowp``, ``lowp_rd``), Gondzio
+correctors, the frozen KKT factor (``kkt_every``) and the dual and paired
+warm starts (``z0``, ``warm_sz``). Every KKT factorization goes through
+``ops.linalg.kkt_inverse``, which picks kernel A or its plain version by
+device; JAX's ``pallas_kkt`` therefore has no counterpart here.
 """
 
 from __future__ import annotations
@@ -79,6 +82,7 @@ def solve_qp(
     h_tail: Optional[torch.Tensor] = None,
     gondzio: int = 0,
     link=None,
+    h_link: Optional[torch.Tensor] = None,
     z0: Optional[torch.Tensor] = None,
     lowp_rd: bool = False,
     warm_sz: bool = False,
@@ -90,19 +94,25 @@ def solve_qp(
     bfloat16-rounded G with float32 accumulation; residuals stay exact.
     Ignored for float64. ``struct``/``h_tail``: the static bound/slack rows
     (`mpc.ocp_struct.OCPStruct`) are applied structurally after the
-    runtime rows of ``g_mat``."""
-    if kkt_every != 1 or link is not None or z0 is not None or warm_sz:
-        raise NotImplementedError(
-            "solve_qp: kkt_every>1, link rows and dual warm starts are not ported"
-        )
+    runtime rows of ``g_mat``; with ``link`` = (acol_u, a_set_joints) and
+    ``h_link`` the link-collision rows are applied through their
+    factorization too, row order [runtime | link | tail], always exactly.
+
+    ``kkt_every`` > 1 refreshes the factor only when the iteration index is
+    a multiple of it; every iteration then refines twice against the
+    current KKT operator applied implicitly (P v + G^T (w G v) + reg v).
+    ``z0``: the dual warm start, clipped into [1e-6, 1e6] against the cold
+    slack; with ``warm_sz`` too, the paired Mehrotra start (s from h - G x0,
+    centring shifts). ``warm_sz`` without ``z0`` is the cold start."""
     n = q_vec.shape[-1]
     m_run = h_vec.shape[-1]
+    m_link = 0 if link is None else h_link.shape[-1]
     dtype = q_vec.dtype
     dev = q_vec.device
     lowp = lowp and dtype == torch.float32
 
     if struct is not None:
-        h_vec = torch.cat([h_vec, h_tail], dim=-1)
+        h_vec = torch.cat([h_vec] + ([h_link] if link is not None else []) + [h_tail], dim=-1)
     m = h_vec.shape[-1]
 
     x = torch.zeros_like(q_vec) if x0 is None else x0
@@ -113,10 +123,19 @@ def solve_qp(
     g_mat_t = g_mat.mT
 
     def _structured(v):
-        return [struct.tail_apply(v)] if struct is not None else []
+        if struct is None:
+            return []
+        if link is None:
+            return [struct.tail_apply(v)]
+        return [struct.link_apply(link[0], link[1], v), struct.tail_apply(v)]
 
     def _structured_t(y):
-        return struct.tail_apply_t(y[..., m_run:]) if struct is not None else 0.0
+        if struct is None:
+            return 0.0
+        if link is None:
+            return struct.tail_apply_t(y[..., m_run:])
+        return (struct.link_apply_t(link[0], link[1], y[..., m_run:m_run + m_link])
+                + struct.tail_apply_t(y[..., m_run + m_link:]))
 
     def gmv(v):
         run = _mv(g_dir, _bf16(v)) if lowp else _mv(g_mat, v)
@@ -133,37 +152,63 @@ def solve_qp(
     def gtmv_exact(v):
         return _mv(g_mat_t, v[..., :m_run]) + _structured_t(v)
 
-    s = torch.clamp(h_vec - gmv_exact(x), min=1.0)
-    z = torch.ones_like(s)
+    if warm_sz and z0 is not None:
+        # paired Mehrotra start: s from the warm point's slack, z from the
+        # inherited duals, both shifted into the cone, then the
+        # complementarity scale equalized
+        s_hat = h_vec - gmv_exact(x)
+        z_hat = torch.clamp(z0, 0.0, 1e6)
+        d_s = torch.clamp(-1.5 * torch.amin(s_hat, dim=-1), min=0.0)[..., None]
+        d_z = torch.clamp(-1.5 * torch.amin(z_hat, dim=-1), min=0.0)[..., None]
+        s1 = s_hat + d_s
+        z1 = z_hat + d_z
+        mu0 = torch.sum(s1 * z1, dim=-1)
+        s = s1 + (0.5 * mu0 / torch.clamp(torch.sum(z1, dim=-1), min=1e-12))[..., None]
+        z = z1 + (0.5 * mu0 / torch.clamp(torch.sum(s1, dim=-1), min=1e-12))[..., None]
+        s = torch.clamp(s, min=1e-8)
+        z = torch.clamp(z, min=1e-8)
+    else:
+        s = torch.clamp(h_vec - gmv_exact(x), min=1.0)
+        z = torch.ones_like(s) if z0 is None else torch.clamp(z0, 1e-6, 1e6)
     eye_n = torch.eye(n, dtype=dtype, device=dev)
 
     def assemble_kkt(w):
         if struct is not None:
-            return (
-                p_mat
-                + struct.gram_g(g_mat, w[..., :m_run], lowp)
-                + reg * eye_n
-                + struct.tail_gram(w[..., m_run:])
-            )
+            kkt = p_mat + struct.gram_g(g_mat, w[..., :m_run], lowp) + reg * eye_n
+            if link is not None:
+                kkt = kkt + struct.link_gram(link[0], link[1], w[..., m_run:m_run + m_link])
+            return kkt + struct.tail_gram(w[..., m_run + m_link:])
         return p_mat + dense_gram(g_mat, w, lowp) + reg * eye_n
 
     tiny = torch.finfo(dtype).tiny
     r_p = gmv_exact(x) + s - h_vec
     done = torch.zeros(q_vec.shape[:-1], dtype=torch.bool, device=dev)
 
-    for _ in range(iters):
+    for it in range(iters):
         r_d = _mv(p_mat, x) + q_vec + (gtmv(z) if lowp_rd else gtmv_exact(z))
         mu = torch.sum(s * z, dim=-1) / m
         w = z / s
-        kkt = assemble_kkt(w)
-        l_inv = kkt_inverse(kkt.contiguous())
+        if kkt_every == 1:
+            kkt = assemble_kkt(w)
+            l_inv = kkt_inverse(kkt.contiguous())
+            kkt_mv = lambda v: _mv(kkt, v)
+            n_refine = 1
+        else:
+            # frozen factor: refreshed (a Python branch, so frozen
+            # iterations launch no factorization) every kkt_every-th
+            # iteration; refinement against the current operator
+            if it % kkt_every == 0:
+                l_inv = kkt_inverse(assemble_kkt(w).contiguous())
+            kkt_mv = lambda v: _mv(p_mat, v) + gtmv(w * gmv(v)) + reg * v
+            n_refine = 2
         l_inv_t = l_inv.mT
 
         def solve_dx(r_c):
             rhs = -r_d + gtmv((r_c - z * r_p) / s)
             dx = _mv(l_inv_t, _mv(l_inv, rhs))
-            resid = rhs - _mv(kkt, dx)            # one refinement sweep
-            dx = dx + _mv(l_inv_t, _mv(l_inv, resid))
+            for _ in range(n_refine):             # refinement sweeps
+                resid = rhs - kkt_mv(dx)
+                dx = dx + _mv(l_inv_t, _mv(l_inv, resid))
             ds = -r_p - gmv(dx)
             dz = -(r_c + z * ds) / s
             return dx, ds, dz
@@ -295,3 +340,54 @@ def solve_line_projection(g_mat, h_vec, p0, p1, iters: int = 30):
     )
     sol = solve_qp(p_mat, q_vec, g_full, h_full, iters=iters)
     return sol.x[..., :3], sol.x[..., 3], sol
+
+
+def solve_qp_admm(
+    p_mat,
+    q_vec,
+    g_mat,
+    h_vec,
+    x0: Optional[torch.Tensor] = None,
+    iters: int = 60,
+    rho: float = 1.0,
+    sigma: float = 1e-6,
+    alpha: float = 1.6,
+) -> QPSolution:
+    """OSQP-style ADMM for a batch of  min 0.5 x'Px + q'x  s.t.  Gx <= h:
+    p_mat (B, n, n), q_vec (B, n), g_mat (B, m, n), h_vec (B, m).
+
+    Rows are scaled to unit norm; one factorization of P + sigma I + rho
+    G'G per call (``kkt_inverse``: kernel A on a CUDA tensor), then
+    ``iters`` relaxed sweeps of matrix-vector products. Returns the
+    ``QPSolution`` of :func:`solve_qp` with s = h - Gx, z the ADMM dual
+    (clipped to >= 0) unscaled, and success r_p < 1e-4."""
+    n = q_vec.shape[-1]
+    m = h_vec.shape[-1]
+    row_norm = torch.sqrt(torch.sum(g_mat * g_mat, dim=-1))
+    scale = 1.0 / torch.clamp(row_norm, min=1e-6)
+    g_s = g_mat * scale[..., None]
+    h_s = h_vec * scale
+    g_s_t = g_s.mT
+
+    eye = torch.eye(n, dtype=q_vec.dtype, device=q_vec.device)
+    l_inv = kkt_inverse((p_mat + sigma * eye + rho * (g_s_t @ g_s)).contiguous())
+    l_inv_t = l_inv.mT
+
+    x = torch.zeros_like(q_vec) if x0 is None else x0
+    z = torch.minimum(_mv(g_s, x), h_s)
+    y = torch.zeros_like(h_vec)
+    for _ in range(iters):
+        rhs = sigma * x - q_vec + _mv(g_s_t, rho * z - y)
+        x_t = _mv(l_inv_t, _mv(l_inv, rhs))
+        x = alpha * x_t + (1.0 - alpha) * x
+        gx = _mv(g_s, x)
+        z_new = torch.minimum(gx + y / rho, h_s)
+        y = torch.clamp(y + rho * (gx - z_new), min=0.0)   # inequality dual cone
+        z = z_new
+
+    gx = _mv(g_mat, x)
+    s = h_vec - gx
+    r_p = torch.amax(torch.clamp(gx - h_vec, min=0.0), dim=-1)
+    r_d = torch.amax(torch.abs(_mv(p_mat, x) + q_vec + _mv(g_s_t, y)), dim=-1)
+    gap = torch.sum(torch.clamp(s, min=0.0) * y * scale, dim=-1) / m
+    return QPSolution(x=x, z=y * scale, s=s, r_p=r_p, r_d=r_d, gap=gap, success=r_p < 1e-4)

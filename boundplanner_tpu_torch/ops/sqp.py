@@ -1,7 +1,8 @@
-"""Batched Gauss-Newton SQP over the dense QP-IPM
+"""Batched Gauss-Newton SQP over the dense QP-IPM or ADMM
 (port of ``boundplanner_tpu/ops/sqp.py``: the generic branch, whose
 Jacobian is forward-mode AD of the evaluation, the manual-Jacobian dense
-branch and the structured branch of the MPC).
+branch, and the structured branch of the MPC with or without factored
+link rows; every QP knob of the JAX engine).
 
 Problem form per scene:  min |r(x)|^2  s.t.  g(x) <= 0. Fixed-trip
 iteration with per-scene ``done`` masks keeps the batch in lockstep (no
@@ -15,7 +16,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .qp import solve_qp
+from .qp import solve_qp, solve_qp_admm
 
 
 class SQPResult(NamedTuple):
@@ -71,11 +72,17 @@ def gauss_newton_sqp(
     line_search_steps: int = 6,
     merit_penalty: float = 1e3,
     viol_tol: float = 1e-4,
+    qp_solver: str = "ipm",
+    admm_iters: int = 60,
     eval_jac_fn: Callable | None = None,
     qp_lowp: bool = False,
+    kkt_every: int = 1,
     struct=None,
     qp_gondzio: int = 0,
+    link_a=None,
+    qp_warm_dual: bool = False,
     qp_lowp_rd: bool = False,
+    qp_warm_sz: bool = False,
 ) -> SQPResult:
     """``eval_fn``: x (B, L, nx) -> (r (B, L, mr), g (B, L, mg)), used for
     the line search's L candidates per scene.
@@ -87,7 +94,16 @@ def gauss_newton_sqp(
     J_g covers every row and the QP is dense; with ``struct``
     (`mpc.ocp_struct.OCPStruct`, the MPC's structured branch) J_g covers the
     runtime rows only and the static constraint tail is applied
-    structurally inside the QP."""
+    structurally inside the QP. With ``link_a`` (the scenes' link-set
+    matrices (B, 6, 15, 3)) ``eval_jac_fn`` returns (r, g, J_r, J_g_dense,
+    acol_u) and the link rows are applied through their factorization,
+    row order [dense | link | tail].
+
+    ``qp_solver="admm"`` solves each subproblem with :func:`solve_qp_admm`
+    (``admm_iters`` sweeps) on the dense rows. ``qp_warm_dual`` carries
+    each scene's QP duals (ones at first) into the next iteration's IPM as
+    ``z0``, also for scenes that are done; ``qp_warm_sz`` pairs them with
+    the warm slack."""
     if struct is not None and eval_jac_fn is None:
         raise ValueError("struct needs a matching eval_jac_fn (structured branch)")
     if eval_jac_fn is None:
@@ -109,27 +125,37 @@ def gauss_newton_sqp(
     lam = torch.full((bsz,), 1e-4, dtype=dtype, device=dev)
     done = torch.zeros(bsz, dtype=torch.bool, device=dev)
     used = torch.zeros(bsz, dtype=torch.int32, device=dev)
+    z_prev = torch.ones_like(g_cur) if qp_warm_dual else None
+    ipm_kw = dict(iters=qp_iters, tol=1e-10, lowp=qp_lowp, kkt_every=kkt_every,
+                  gondzio=qp_gondzio, lowp_rd=qp_lowp_rd, warm_sz=qp_warm_sz)
 
     for _ in range(iters):
-        if struct is None:
-            if eval_jac_fn is None:
-                r, g = (t[:, 0] for t in eval_fn(x[:, None]))
-                with _TRANSFORMS:
-                    jr, jg = jac_fwd(eval_fn, x)
-            else:
-                r, g, jr, jg = eval_jac_fn(x)
-            grad = 2.0 * (jr.mT @ r[..., None])[..., 0]
-            hess = 2.0 * jr.mT @ jr + lam[:, None, None] * eye
-            qp = solve_qp(hess, grad, jg, -g, iters=qp_iters, tol=1e-10,
-                          lowp=qp_lowp, gondzio=qp_gondzio, lowp_rd=qp_lowp_rd)
+        acol_u = None
+        if eval_jac_fn is None:
+            r, g = (t[:, 0] for t in eval_fn(x[:, None]))
+            with _TRANSFORMS:
+                jr, jg = jac_fwd(eval_fn, x)
+        elif link_a is not None:
+            r, g, jr, jg, acol_u = eval_jac_fn(x)
         else:
-            m_run = struct.m_run
             r, g, jr, jg = eval_jac_fn(x)
-            grad = 2.0 * (jr.mT @ r[..., None])[..., 0]
-            hess = 2.0 * struct.gram_r(jr) + lam[:, None, None] * eye
-            qp = solve_qp(hess, grad, jg, -g[:, :m_run], iters=qp_iters, tol=1e-10,
-                          lowp=qp_lowp, struct=struct, h_tail=-g[:, m_run:],
-                          gondzio=qp_gondzio, lowp_rd=qp_lowp_rd)
+        grad = 2.0 * (jr.mT @ r[..., None])[..., 0]
+        gram = struct.gram_r(jr) if struct is not None else jr.mT @ jr
+        hess = 2.0 * gram + lam[:, None, None] * eye
+
+        if qp_solver == "admm":
+            qp = solve_qp_admm(hess, grad, jg, -g, iters=admm_iters)
+        elif struct is not None and link_a is not None:
+            md, ml = struct.m_dense, struct.m_link
+            qp = solve_qp(hess, grad, jg, -g[:, :md], struct=struct, h_tail=-g[:, md + ml:],
+                          link=(acol_u, link_a), h_link=-g[:, md:md + ml], z0=z_prev,
+                          **ipm_kw)
+        elif struct is not None:
+            m_run = struct.m_run
+            qp = solve_qp(hess, grad, jg, -g[:, :m_run], struct=struct,
+                          h_tail=-g[:, m_run:], z0=z_prev, **ipm_kw)
+        else:
+            qp = solve_qp(hess, grad, jg, -g, z0=z_prev, **ipm_kw)
         d = qp.x
 
         cand = x[:, None, :] + alphas[None, :, None] * d[:, None, :]
@@ -163,6 +189,8 @@ def gauss_newton_sqp(
         g_cur = torch.where(dd, g_cur, g_new)
         used = used + (~done).to(torch.int32)
         done = done | conv | (lam > 1e8)
+        if qp_warm_dual:
+            z_prev = qp.z
 
     viol = torch.amax(torch.clamp(g_cur, min=0.0), dim=-1)
     return SQPResult(

@@ -86,6 +86,18 @@ def local_device():
     return torch.device("cuda", process_index() % torch.cuda.device_count())
 
 
+def global_scenario_mesh(device=None) -> list:
+    """The scenario axis over every rank's device, in rank order: rank r
+    feeds CUDA device ``r % device_count`` (:func:`local_device`), or
+    ``device`` on every rank (for example ``"cpu"``). Without a process
+    group, this process's device alone."""
+    if device is None:
+        checked_device("cuda")
+        count = torch.cuda.device_count()
+        return [torch.device("cuda", r % count) for r in range(process_count())]
+    return [checked_device(device)] * process_count()
+
+
 def local_batch_slice(global_batch: int) -> slice:
     """The contiguous block of the global scene axis this rank feeds
     (``global_batch / process_count`` scenes)."""
@@ -98,9 +110,12 @@ def local_batch_slice(global_batch: int) -> slice:
 
 
 def global_from_local(tree_local, device, dtype=torch.float32):
-    """This rank's shard of the fleet on its device: numpy leaves become
+    """This rank's shard of the fleet on its device (``device``, or this
+    rank's entry of a :func:`global_scenario_mesh`): numpy leaves become
     tensors (floating ones in ``dtype``), tensor leaves move. Scenes never
     cross ranks, so this is all the global layout asks for."""
+    if isinstance(device, list):
+        device = device[process_index()]
     device = checked_device(device)
     return tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor)
                     else to_torch(x, device, dtype), tree_local)

@@ -425,14 +425,9 @@ class MpcHostServices:
     # (srv fields n/nr_segs/dt/weights, `boundmpcmsg/srv/MPCParams.srv`;
     #  the build/simulate/use_acados flags have no analog here)
     def mpc_params(self, **updates):
-        """Raises the port's ``NotImplementedError`` for a configuration
-        branch it does not carry, before the node changes."""
         import dataclasses
 
-        from .mpc.solver import check_supported
-
         params = dataclasses.replace(self.mpc_node.params, **updates)
-        check_supported(params)
         self.mpc_node.reconfigure(params)
         return {"success": True, "params": dataclasses.asdict(params)}
 

@@ -7,8 +7,11 @@ Run from the repository root on a machine with one NVIDIA GPU (H100):
     python3 chip_smoke.py --only-runtime [--out DIR]
     python3 chip_smoke.py --compare-kernel-b SOURCE [--out DIR]
     python3 chip_smoke.py --compare-builders [--out DIR]
+    python3 chip_smoke.py --only-solver-configs [--out DIR]
 
-The second form runs only the runtime phases (13-15 below). The third
+The second form runs only the runtime phases (13-15 below); the last only
+builds, then runs kernel A at the retry's shape, kernel B's folds and the
+solver configurations of phase 5 (~2 min). The third
 only builds, then times kernel B of SOURCE (another
 tree's ``csrc/line_polytope.cu``, same C entry) against this tree's in
 turns (SOURCE, this, this, SOURCE) at kernel B's folds, and checks that
@@ -25,15 +28,16 @@ Phases (each asserts; any failure exits non-zero):
    parallel);
 2. kernel A (Cholesky + inverse) against its plain PyTorch version on the
    card, at the fleet's shapes (128, 136, 136) and (1, 136, 136) in f32,
-   (2, 136, 136) in f64 and (64, 136, 136) in f32 (one rank's block of the
-   sharded rollouts), and on batches of non-PD matrices at n = 136 in f32
-   and f64 (the same finite flag per matrix as the plain version);
+   (2, 136, 136) in f64, (64, 136, 136) in f32 (one rank's block of the
+   sharded rollouts) and (4, 136, 136) in f32 (the escalation retry's
+   sub-batch), and on batches of non-PD matrices at n = 136 in f32 and f64
+   (the same finite flag per matrix as the plain version);
 3. kernel B (segment-polytope projection) against its plain version at
    the tick's shapes, P = 12288 and P = 1, R = 15, with zero-padded rows
    and inactive obstacles, and at the planner's, P = 16 and P = 1024 (one
    and 64 coalesced `find_set_line` calls on fleet draws), one arm's tick
-   (P = 96), on the inputs of the cached fleet's first tick ("tick_real",
-   P = 12288), and on five
+   (P = 96), the escalation retry's (P = 384: 4 lanes x 96), on the inputs
+   of the cached fleet's first tick ("tick_real", P = 12288), and on five
    edge cases of its row rule and exits (the same finite pattern as the
    plain version, and agreement where finite);
 4. a small f64 rollout on the card against the same rollout on the CPU;
@@ -45,6 +49,11 @@ Phases (each asserts; any failure exits non-zero):
    card at batch 128 and at batch 1; then the same fleet's quality with a
    kernel's route swapped (kernel A
    again, its plain version, kernel A in f64, kernel B's plain version);
+   then the solver configurations (``solver_configs``: the chunked Grams,
+   the factored link rows, the dense tail, ADMM, the frozen KKT factor,
+   the paired warm start, 4 escalation lanes) on the same fleet for 10
+   ticks each, with their launches, quality and wall time, each also run
+   2 scenes x 2 ticks in f64 on the card against the CPU;
 6. kernel A against its plain version at the planner's shapes, f32:
    batch 64 at n = 3, 4, 8, 12, 16, 20, 24, and (1, 3, 3), (1024, 3, 3),
    (1280, 4, 4);
@@ -150,12 +159,32 @@ PLANNER_CHOL_SHAPES = ([(64, n) for n in (3, 4, 8, 12, 16, 20, 24)]
 # the single-arm runtime: the tests/test_e2e.py scene (`mpc/e2e.py`),
 # planned on the card in f64, then MPCNode ticks toward the path end (f64
 # `MPCParams()` and f32 `perf_mpc_params()`), each phase capped in ticks
-# and seconds (PERF.md §4)
+# and seconds (PERF.md §4). The f64 cap makes room for the solver
+# configurations: its ~4.4 s ticks stop short of the path end (~38
+# ticks), so the goal bar is asserted on the f32 node, which reaches it
 RUNTIME_COMPARE_TICKS = 3         # f64 ticks run on the card and on the CPU
 RUNTIME_MAX_TICKS = 60
-RUNTIME_F64_CAP_S = 150.0
+RUNTIME_F64_CAP_S = 90.0
 RUNTIME_F32_CAP_S = 90.0
 PROJ_IPM_ITERS = 25               # the f64 link sets' projection IPM (`_seg_closest_ipm`)
+# the solver configurations the JAX package also carries, each on
+# `perf_mpc_params()` with the fields below, on the cached fleet at its full
+# width for SOLVER_TICKS ticks (cut from 20 for time, PERF.md §4). Success is
+# held to the main path's floor where the JAX package runs the configuration
+# at the perf config's quality, and reported for its measured negatives
+# (admm, kkt2, warm_sz). esc4 retries up to 4 failing lanes a tick at the
+# escalated budget (6 SQP x 8 IPM iterations, streak limit 3).
+SOLVER_TICKS = 10
+SOLVER_CONFIGS = {
+    "chunked": dict(struct_chunked=True),
+    "link": dict(struct_link=True),
+    "dense_tail": dict(struct_tail=False),
+    "admm": dict(struct_tail=False, qp_solver="admm"),
+    "kkt2": dict(kkt_every=2),
+    "warm_sz": dict(qp_warm_dual=True, qp_warm_sz=True),
+    "esc4": dict(esc_lanes=4),
+}
+SOLVER_FLOORED = ("chunked", "link", "dense_tail", "esc4")
 # the fleet tier: the process-pool builder (MP_SCENES scenes, its default
 # count of spawned workers, blocks of MP_BLOCK draws), the batched shortest path
 # (SPATH_SCENES roadmaps padded to SPATH_PAD junctions), and the dry run
@@ -430,6 +459,9 @@ def kernel_b_cases(rng, dev, real):
     # the folds above keep their inputs
     cases.append(("runtime_tick", [torch.from_numpy(x).to(dev) for x in
                                    projection_batch(np.random.default_rng(96), 96)]))
+    # the escalation retry's link sets: 4 lanes x 96 problems
+    cases.append(("retry_tick", [torch.from_numpy(x).to(dev) for x in
+                                 projection_batch(np.random.default_rng(384), 384)]))
     cases.append(("tick_real", list(real)))
     cases.append(("edge", [torch.from_numpy(x).to(dev) for x in edge_projection_batch()]))
     return cases
@@ -547,9 +579,10 @@ def phase_compare_kernel_b(rng, dev, real, source, out_dir):
     return result
 
 
-def phase_small_f64(payload, cfg, dev):
+def phase_small_f64(payload, cfg, dev, config="perf"):
     """2 scenes x 2 ticks in f64: the card's route (kernel A in every IPM,
-    the exact projection IPM) against the CPU's plain route."""
+    the exact projection IPM) against the CPU's plain route, for the
+    solver configuration named ``config``."""
     import numpy as np
     import torch
     from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
@@ -567,9 +600,11 @@ def phase_small_f64(payload, cfg, dev):
     a, b = res["cpu"], res[str(dev)]
     err = max(float(np.max(np.abs(a[k] - b[k]))) for k in ("q", "phi", "p"))
     same = bool(np.array_equal(a["success"], b["success"]))
-    emit({"phase": "small_f64_cpu_vs_card", "max_abs_err_q_phi_p": err,
-          "same_success": same})
-    assert same and err < 1e-6, f"f64 card rollout disagrees with the CPU: {err}"
+    row = {"phase": "small_f64_cpu_vs_card", "config": config, "max_abs_err_q_phi_p": err,
+           "same_success": same}
+    emit(row)
+    assert same and err < 1e-6, f"f64 card rollout disagrees with the CPU ({config}): {err}"
+    return row
 
 
 def phase_main(payload, cfg, dev):
@@ -688,6 +723,72 @@ def phase_main_routes(payload, cfg, dev):
                                                               line_polytope_projection)
     emit(row)
     return row
+
+
+def solver_launches(cfg, ticks, fired):
+    """Kernel A's and B's launches of ``ticks`` fleet ticks under ``cfg``,
+    ``fired`` of them escalated: a factorization per IPM iteration, per
+    ``kkt_every`` of them when frozen, or one per SQP iteration under ADMM;
+    the link sets once per tick and once per retry."""
+    def factorizations(sqp, qp):
+        return sqp * (1 if cfg.qp_solver == "admm" else -(-qp // cfg.kkt_every))
+    want_a = (ticks * factorizations(cfg.sqp_iters, cfg.qp_iters)
+              + fired * factorizations(cfg.esc_sqp_iters, cfg.esc_qp_iters))
+    return {"chol_inverse": want_a, "line_polytope": ticks + fired}
+
+
+def phase_solver_configs(payload, dev, main_res):
+    """Each of SOLVER_CONFIGS on the cached fleet at full width in f32 for
+    SOLVER_TICKS ticks (chunk 128): launches (asserted), finite records,
+    quality beside the main path's, wall time; then 2 scenes x 2 ticks of
+    it in f64 on the card against the CPU (`phase_small_f64`)."""
+    import dataclasses
+    import torch
+    from boundplanner_tpu_torch.config import perf_mpc_params
+    from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
+    from boundplanner_tpu_torch.ops.cuda_proj import line_polytope_projection
+    from boundplanner_tpu_torch.ops.linalg import kkt_inverse
+    from boundplanner_tpu_torch.parallel import batch
+    from boundplanner_tpu_torch.parallel.fleet_cache import to_torch
+
+    carry, q0, obs = to_torch((payload["carry"], payload["q0"], payload["obs"]),
+                              dev, torch.float32)
+    chunks = q0.shape[0] // CHUNK
+    rows = {}
+    for name, fields in SOLVER_CONFIGS.items():
+        cfg = dataclasses.replace(perf_mpc_params(), **fields)
+        model = FleetMPC(cfg, device=dev, dtype=torch.float32)
+        torch.cuda.synchronize()
+        kkt_inverse.launches = 0
+        line_polytope_projection.launches = 0
+        batch._escalate_failed_lanes.retries = 0
+        t0 = time.perf_counter()
+        final, recs = batch.chunked_rollout(carry, q0, obs, model, SOLVER_TICKS, chunk=CHUNK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"chol_inverse": kkt_inverse.launches,
+                    "line_polytope": line_polytope_projection.launches}
+        fired = batch._escalate_failed_lanes.retries
+        finite = (all(bool(torch.isfinite(v.float()).all()) for v in recs.values())
+                  and all(bool(torch.isfinite(t.float()).all()) for t in final
+                          if isinstance(t, torch.Tensor)))
+        success = float(recs["success"].float().mean())
+        row = {"phase": "solver_configs", "config": name, "fields": fields,
+               "ticks": SOLVER_TICKS, "scenes": q0.shape[0], "success_rate": success,
+               "success_minus_main": (None if main_res is None
+                                      else success - main_res["success_rate"]),
+               "max_viol": float(recs["viol"].amax()),
+               "mean_phi_final": float(recs["phi"][:, -1].mean()), "wall_s": wall,
+               "launches": launches, "want": solver_launches(cfg, SOLVER_TICKS * chunks, fired),
+               "escalated_ticks": fired, "finite": finite}
+        emit(row)
+        assert finite, f"{name}: non-finite records or carry"
+        assert launches == row["want"], (name, launches, row["want"])
+        if name in SOLVER_FLOORED:
+            assert success >= 0.90, f"{name}: success_rate {success} < 0.90"
+        row["small_f64"] = phase_small_f64(payload, cfg, dev, name)
+        rows[name] = row
+    return rows
 
 
 def phase_kernel_a_planner(rng, dev):
@@ -888,6 +989,18 @@ def phase_kernel_a_shard(dev):
 
     k = spd_batch(np.random.default_rng(SHARD), SHARD, dtype="float32")
     return kernel_a_row("kernel_a_shard", torch.from_numpy(k).to(dev), 200)
+
+
+def phase_kernel_a_retry(dev):
+    """Kernel A at (4, 136, 136) f32: the escalation retry's sub-batch of
+    ``esc_lanes=4`` (the ``esc4`` solver configuration), with the bars of
+    `phase_kernel_a` (its own seed)."""
+    import numpy as np
+    import torch
+
+    esc = SOLVER_CONFIGS["esc4"]["esc_lanes"]
+    k = spd_batch(np.random.default_rng(esc), esc, dtype="float32")
+    return kernel_a_row("kernel_a_retry", torch.from_numpy(k).to(dev), 200)
 
 
 def phase_worst_tick(payload, cfg, dev, out_dir):
@@ -1229,6 +1342,9 @@ def phase_runtime_f32(dev, plan):
     drive_to_end(node, obs_orig, want, RUNTIME_F32_CAP_S, launches)
     row = node_summary("runtime_f32", node, goal, launches, want)
     emit(row)
+    if row["path_end_reached"]:
+        assert row["goal_err_m"] < 0.02, f"final EE error {row['goal_err_m']} (f32)"
+        assert row["fails"] <= 2, f"{row['fails']} failed ticks (f32)"
     return row, node
 
 
@@ -1565,6 +1681,7 @@ def main(argv):
         compare_b = os.path.abspath(argv[argv.index("--compare-kernel-b") + 1])
     compare_builders = "--compare-builders" in argv
     only_runtime = "--only-runtime" in argv
+    only_solver_configs = "--only-solver-configs" in argv
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "boundplanner_tpu_torch")):
         print("chip_smoke: boundplanner_tpu_torch not found beside this script",
@@ -1617,14 +1734,25 @@ def main(argv):
         return 0 if all(result["equal_by_value"].values()) else 1
 
     rng = np.random.default_rng(0)
+    if only_solver_configs:
+        phase_kernel_a_retry(dev)
+        phase_kernel_b(rng, dev, real)
+        solver = phase_solver_configs(payload, dev, None)
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, "solver_configs.json"), "w") as f:
+                json.dump({"card": card, "solver_configs": solver}, f, indent=1)
+        return 0
     a = phase_kernel_a(rng, dev)
     a_shard = phase_kernel_a_shard(dev)
+    a_retry = phase_kernel_a_retry(dev)
     b_all = phase_kernel_b(rng, dev, real)
     b = b_all[0]
     phase_small_f64(payload, cfg, dev)
     main_res = phase_main(payload, cfg, dev)
     phase_worst_tick(payload, cfg, dev, out_dir)
     routes = phase_main_routes(payload, cfg, dev)
+    solver = phase_solver_configs(payload, dev, main_res)
     a_plan = phase_kernel_a_planner(rng, dev)
     phase_planner_f64(cfg, dev)
     spath = phase_device_search(dev)
@@ -1654,11 +1782,13 @@ def main(argv):
          "launches_examples": examples["launches"]["chol_inverse"],
          "launches_examples_by_example": {name: n["chol_inverse"] for name, n
                                           in examples["launches_by_example"].items()},
+         "launches_solver_configs": {name: r["launches"]["chol_inverse"]
+                                     for name, r in solver.items()},
          **summary(a[0]), "launch_only_ms": a[0]["launch_only_ms"],
          "library": a[0]["library"],
          "shapes": [{"shape": r["shape"], "dtype": r["dtype"], **summary(r),
                      "launch_only_ms": r["launch_only_ms"]}
-                    for r in a + [a_shard] + a_plan + [rt64["kernel_a"],
+                    for r in a + [a_shard, a_retry] + a_plan + [rt64["kernel_a"],
                                                        rt64["kernel_a_projection"]]]},
         {"name": "line_polytope", "route": "cuda",
          "source": "boundplanner_tpu_torch/csrc/line_polytope.cu",
@@ -1673,6 +1803,8 @@ def main(argv):
          "launches_examples": examples["launches"]["line_polytope"],
          "launches_examples_by_example": {name: n["line_polytope"] for name, n
                                           in examples["launches_by_example"].items()},
+         "launches_solver_configs": {name: r["launches"]["line_polytope"]
+                                     for name, r in solver.items()},
          **summary(b), "launch_only_ms": b["launch_only_ms"],
          "bound_ms_all_rows": b["bound_ms_all_rows"],
          "library": None,
@@ -1683,7 +1815,8 @@ def main(argv):
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-            json.dump({"card": card, "main": main_res, "main_routes": routes, "plan_fleet": plan,
+            json.dump({"card": card, "main": main_res, "main_routes": routes,
+                       "solver_configs": solver, "plan_fleet": plan,
                        "device_search": spath, "fleet_mp": mp_row, "planned_rollout": rollout,
                        "multi_gpu": multi, "runtime_f64": rt64, "runtime_f32": rt32,
                        "runtime_parts": parts, "edges": edges, "sync_fleet": sync,

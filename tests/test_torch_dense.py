@@ -4,7 +4,8 @@ dense QP on all 2439 rows) and ``manual_jac=True`` (the dense chain rule
 ``ocp_jac.evaluate_with_jac``), on the first tick of
 ``.fleet_cache/test8.pkl`` scenes 0-1 in float64:
 
-- ``check_supported`` accepts both and still refuses every unported branch;
+- ``check_supported`` accepts both and every branch once refused, and
+  rejects what JAX rejects;
 - ``evaluate_with_jac`` against the port's ``jac_fwd`` of ``ocp.evaluate``
   and against JAX, to 1e-9;
 - the dense ``solve_qp`` on the tick's first SQP subproblem: float64 to
@@ -101,8 +102,19 @@ def test_check_supported_accepts(fields):
     {"struct_ocp": True, "struct_chunked": False, "struct_tail": False},
 ], ids=lambda f: ",".join(f"{k}={v}" for k, v in f.items()))
 def test_check_supported_refuses(fields):
-    with pytest.raises(NotImplementedError):
-        tsolver.check_supported(tconfig.MPCParams(**fields))
+    """Each branch that the port once refused: accepted now (the model
+    builds), except where the JAX package refuses it too (``struct_link``
+    without the flat structural tail: a ``ValueError`` in both)."""
+    cfg = tconfig.MPCParams(**fields)
+    if fields == {"struct_link": True}:
+        with pytest.raises(ValueError):
+            jsolver.solve_sqp(jnp.zeros(tocp.n_vars(cfg.n)), {}, MPCParams(**fields))
+        with pytest.raises(ValueError):
+            tsolver.check_supported(cfg)
+        return
+    tsolver.check_supported(cfg)
+    model = tmpc.FleetMPC(cfg, device="cpu", dtype=torch.float64)
+    assert model.st.chunked == (cfg.struct_ocp and cfg.struct_chunked)
 
 
 def xs(nx):

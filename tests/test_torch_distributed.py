@@ -201,6 +201,22 @@ def test_local_batch_slice_and_feed_round_trip():
         np.testing.assert_array_equal(back[key], np.asarray(tree[key]))
 
 
+def test_global_from_local_roundtrip():
+    """tests/test_distributed.py's round trip through the scenario mesh, in
+    one process: the mesh is this process's device alone, and a tree fed
+    onto it comes back equal."""
+    mesh = dist.global_scenario_mesh("cpu")
+    assert mesh == [torch.device("cpu")]
+    tree = {"a": np.arange(16, dtype=np.float32).reshape(8, 2),
+            "b": np.arange(8, dtype=np.float32)}
+    back = dist.local_from_global(dist.global_from_local(tree, mesh, torch.float32))
+    np.testing.assert_array_equal(back["a"], tree["a"])
+    np.testing.assert_array_equal(back["b"], tree["b"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            dist.global_scenario_mesh()
+
+
 def test_executed_penetration():
     """Scene 0 starts clean and enters the box 2 cm deep; scene 1 starts
     3 cm inside and ends 1 cm inside (it pulls out)."""

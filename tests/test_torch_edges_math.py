@@ -13,7 +13,8 @@
 - ``mpc/flops.py``: ``solve_flops`` equal to JAX's dict for dict (same
   integers, same float arithmetic) for dense, flat and chunked
   configurations of ``perf_mpc_params()`` and ``MPCParams()``, and
-  ``ocp_struct.layout`` equal to the counts of JAX's chunked ``OCPStruct``.
+  ``ocp_struct.layout`` equal to the counts of JAX's chunked ``OCPStruct``;
+  the port's chunked structure (split, column support, Grams) against it.
 """
 
 import dataclasses
@@ -245,14 +246,25 @@ def test_layout_counts_equal_jax_struct(n):
 
 
 def test_chunked_structure_still_refused():
-    """The counts come without the chunked solver: ``build(chunked=True)``
-    and ``check_supported`` refuse it as before."""
-    from boundplanner_tpu_torch.mpc.solver import check_supported
-
-    with pytest.raises(NotImplementedError):
-        tstruct.build(15, 0.1, chunked=True)
-    with pytest.raises(NotImplementedError):
-        check_supported(dataclasses.replace(tconfig.perf_mpc_params(), struct_chunked=True))
+    """The chunked structure the counts describe, against JAX's: the same
+    split and column support, and its runtime Grams (the causal chunk
+    split) equal to JAX's within 1e-12 of the largest entry on seeded
+    matrices of the full row layout."""
+    jst = jax_build_struct(15, 0.1, chunked=True)
+    st = tstruct.build(15, 0.1, chunked=True)
+    lay = tstruct.layout(15)
+    assert st.chunked and st.half == jst.half == lay.half
+    np.testing.assert_array_equal(st.cols_a.numpy(), jst.cols_a)
+    assert (st.m_link, st.m_dense) == (jst.m_link, jst.m_dense)
+    rng = np.random.default_rng(15)
+    g = rng.normal(size=(2, st.m_run, st.nx))
+    w = rng.uniform(0.1, 10.0, size=(2, st.m_run))
+    j = rng.normal(size=(2, st.m_r, st.nx))
+    for got, ref in ((st.gram_g(torch.from_numpy(g), torch.from_numpy(w)),
+                      jax.vmap(jst.gram_g)(g, w)),
+                     (st.gram_r(torch.from_numpy(j)), jax.vmap(jst.gram_r)(j))):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-12 * np.abs(ref).max())
 
 
 def test_flops_cli_runs():

@@ -263,11 +263,14 @@ def test_host_services_tick_matches_jax(serviced_nodes):
 
 
 def test_host_services_refuse_unported_branch(serviced_nodes):
-    """An update onto a branch the port does not carry raises its
-    NotImplementedError and leaves the node as it was."""
-    svc, node = serviced_nodes["port"]
-    before = node.params
+    """Updates onto the branches the port once refused (ADMM, the frozen KKT
+    factor, escalation lanes) apply in both packages' services alike: the
+    same replies, the same node parameters, an idle MPC rebuilt."""
+    (jsvc, jnode), (tsvc, tnode) = serviced_nodes["jax"], serviced_nodes["port"]
     for update in (dict(qp_solver="admm"), dict(kkt_every=2), dict(esc_lanes=4)):
-        with pytest.raises(NotImplementedError):
-            svc.mpc_params(**update)
-        assert node.params == before
+        jreply, treply = jsvc.mpc_params(**update), tsvc.mpc_params(**update)
+        assert treply == jreply and treply["success"]
+        assert dataclasses.asdict(tnode.params) == dataclasses.asdict(jnode.params)
+        assert tnode.mpc.model.cfg == tnode.params
+    assert (tnode.params.qp_solver, tnode.params.kkt_every, tnode.params.esc_lanes) == (
+        "admm", 2, 4)
