@@ -101,6 +101,9 @@ def init_carry(path: PathState, p0, cfg: MPCParams, dtype=np.float64) -> MPCCarr
     )
 
 
+init_carry_np = init_carry   # the JAX package's name (its demo imports it)
+
+
 def _sel(cond, a, b):
     """torch.where with a per-scene condition (B,) broadcast over a/b."""
     cond = cond.reshape(cond.shape + (1,) * (max(a.dim(), b.dim()) - cond.dim()))

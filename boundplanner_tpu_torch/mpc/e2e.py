@@ -40,10 +40,12 @@ E2E_WS_MIN = (-0.14, -1.0, 0.0)
 E2E_WS_MAX = (1.0, 0.38, 1.0)
 
 
-def plan_e2e(device):
-    """The scene planned on ``device`` in float64 (planner seed 0).
-    Returns (q0, the ``update_reference`` arguments, the original
-    obstacles' H-reps, the goal, the plan's seconds)."""
+def plan_e2e(device, broker=None):
+    """The scene planned on ``device`` in float64 (planner seed 0), through
+    ``broker`` when given (a `parallel.broker.BatchBroker`). Returns (q0,
+    the ``update_reference`` arguments, the original obstacles' H-reps,
+    the goal, the plan's timing: ``seconds`` and the roadmap searches'
+    ``comp_time_path``)."""
     device = torch.device(device)
     q0 = DEMO_Q0.copy()
     pose0 = RobotModel(device=device).fk(q0)
@@ -52,7 +54,7 @@ def plan_e2e(device):
     goal = np.asarray(E2E_GOAL)
     t0 = time.perf_counter()
     planner = BoundPlanner(e_p_max=0.5, obstacles=E2E_OBSTACLES, workspace_max=E2E_WS_MAX,
-                           workspace_min=E2E_WS_MIN, seed=0, device=device,
+                           workspace_min=E2E_WS_MIN, seed=0, broker=broker, device=device,
                            dtype=torch.float64)
     p_via, r_via, bp1, sets_via = planner.plan_convex_set_path(pose0[:3].copy(), goal.copy(),
                                                                r0, r1)
@@ -62,7 +64,8 @@ def plan_e2e(device):
     n = len(bp1)
     args = (p_via, r_via, bp1, [np.array([0.0, 0.0, 1.0])] * n, [DEFAULT_ER_BOUND] * n,
             [x[0] for x in sets_via], [x[1] for x in sets_via], E2E_OBSTACLES)
-    return q0, args, planner.obs_sets_orig, goal, secs
+    timing = {"seconds": secs, "comp_time_path": planner.comp_time_path}
+    return q0, args, planner.obs_sets_orig, goal, timing
 
 
 def library_inverse(kkt):

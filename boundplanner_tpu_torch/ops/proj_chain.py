@@ -1,22 +1,23 @@
-"""Kernel B's dependent chain, counted on the CPU (a design probe, not used
-by the port).
+"""Kernel B's dependent chain, counted on the host (a design probe, not
+used by the port).
 
 Run from the repository root (~30 s on a CPU):
 
-    python -m boundplanner_tpu_torch.ops.proj_chain [FLEET]
+    python -m boundplanner_tpu_torch.ops.proj_chain [FLEET] [--device cpu]
 
 It captures the ``seg_poly_closest`` inputs of the first tick of a cached
 fleet (the main path's 128-scene fleet unless FLEET is given) in float32 on
-the CPU, replays kernel B's control flow on them (``csrc/line_polytope.cu``:
-no-op rows dropped, each Dykstra call stopped after its first sweep that
-changes nothing, the outer loop stopped at its fixed point) and prints one
-JSON line: the histogram of kept rows, the outer iteration at which each
+the card (on the CPU with ``--device cpu``), then replays on the host
+kernel B's control flow on them (``csrc/line_polytope.cu``: no-op rows
+dropped, each Dykstra call stopped after its first sweep that changes
+nothing, the outer loop stopped at its fixed point) and prints one JSON
+line: the histogram of kept rows, the outer iteration at which each
 problem returns its input unchanged, and the chain (row corrections) of
 each problem and of each warp's slowest problem (32 consecutive problems,
 as the kernel's threads take them), beside the full chain 11 x 4 x R. The
 replay rounds as the plain version does (no FMA contraction), so these are
-CPU counts of that rounding, not the card's. It also checks that the
-replay's x and phi equal the plain version's by value.
+host counts of that rounding, not the card's. It also checks that the
+replay's x and phi equal the plain version's (on the host) by value.
 """
 
 from __future__ import annotations
@@ -151,21 +152,30 @@ def summary(counts, rows):
 
 
 def main(argv):
+    import argparse
+
     from ..config import perf_mpc_params
     from ..mpc.bound_mpc import FleetMPC
     from ..parallel.fleet_cache import load, to_torch
+    from ..utils.device import DEFAULT_DEVICE, checked_device
 
-    path = argv[0] if argv else FLEET
-    payload = load(path)
-    carry, q0, obs = to_torch((payload["carry"], payload["q0"], payload["obs"]), "cpu",
+    ap = argparse.ArgumentParser(prog="python -m boundplanner_tpu_torch.ops.proj_chain")
+    ap.add_argument("fleet", nargs="?", default=FLEET)
+    ap.add_argument("--device", default=DEFAULT_DEVICE,
+                    help="where the tick runs up to its link sets (the card by default)")
+    args_ns = ap.parse_args(argv)
+    device = checked_device(args_ns.device)
+    payload = load(args_ns.fleet)
+    carry, q0, obs = to_torch((payload["carry"], payload["q0"], payload["obs"]), device,
                               torch.float32)
-    model = FleetMPC(perf_mpc_params(), device="cpu", dtype=torch.float32)
-    args = capture_tick_inputs(carry, q0, obs, model)
+    model = FleetMPC(perf_mpc_params(), device=device, dtype=torch.float32)
+    # the count replay and its plain reference run on the host
+    args = tuple(t.cpu() for t in capture_tick_inputs(carry, q0, obs, model))
     x, phi, counts = replay(*(t.numpy() for t in args))
     xp, phip, _ = line_polytope_projection_plain(*args)
     equal = lambda u, v: bool(np.array_equal(u, v.numpy(), equal_nan=True))
-    print(json.dumps({"fleet": path, "tick": 0, "device": "cpu", "dtype": "float32",
-                      **summary(counts, args[1].shape[1]),
+    print(json.dumps({"fleet": args_ns.fleet, "tick": 0, "device": str(device),
+                      "dtype": "float32", **summary(counts, args[1].shape[1]),
                       "equal_to_plain": equal(x, xp) and equal(phi, phip)}), flush=True)
     return 0
 

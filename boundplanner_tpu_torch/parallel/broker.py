@@ -63,7 +63,8 @@ class BatchBroker:
     leading batch axis to results with the same leading axis.
     call(key, *args): ``args`` are ONE call's numpy arrays (or trees of
     them); blocks until the coalesced batch has run and returns this
-    call's row of the results as numpy.
+    call's row of the results as numpy. ``calls_by_key`` counts the calls
+    served under each key.
     """
 
     def __init__(self, linger: float = 0.003, max_batch: int = 64,
@@ -81,6 +82,7 @@ class BatchBroker:
         self.batches_run = 0
         self.calls_served = 0
         self.coalesced_calls = 0
+        self.calls_by_key: Dict[str, int] = {}
 
     def register(self, key: str, fn: Callable):
         self._fns[key] = fn
@@ -124,19 +126,30 @@ class BatchBroker:
                 self.batches_run += n_runs
                 self.calls_served += k
                 self.coalesced_calls += max(k - n_runs, 0)
+                self.calls_by_key[key] = self.calls_by_key.get(key, 0) + k
             for t in batch:
                 if t is not ticket:
                     t.event.set()
         return ticket.result
 
 
-def register_planner_kernels(broker, max_set_size: int = 20, max_via: int = 6):
+def register_planner_kernels(broker, max_set_size: int = 20, device_search: bool = False,
+                             max_via: int = 6):
     """Register the BoundPlanner device-kernel surface on a broker: the
     functions of `planner.planner.planner_kernels` under their keys, which
-    `planner.BoundPlanner`'s wrappers route through the broker. (The JAX
-    package's optional device shortest-path key is not ported: the planner
-    searches its roadmap on the host.)"""
+    `planner.BoundPlanner`'s wrappers route through the broker.
+
+    ``device_search`` also registers the batched min-plus shortest path
+    ("spath", `planner.device_search.shortest_path_device`); the planner
+    then routes its roadmap searches through it. Off by default: on the
+    H100 one call for 128 roadmaps took longer than their 128 host
+    Dijkstras (`PERF.md`), and a search is milliseconds of a plan of
+    seconds."""
     from ..planner.planner import planner_kernels
 
     for key, fn in planner_kernels(max_set_size, max_via).items():
         broker.register(key, fn)
+    if device_search:
+        from ..planner.device_search import shortest_path_device
+
+        broker.register("spath", shortest_path_device)

@@ -321,20 +321,22 @@ def build_fleet_mp(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
 
 def build_fleet_threaded(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
                          seed: int = 0, dtype=np.float32, n_threads: int = 8,
-                         linger: float = 0.030, device=DEFAULT_DEVICE,
-                         plan_dtype=torch.float32):
+                         linger: float = 0.030, device_search: bool = False,
+                         device=DEFAULT_DEVICE, plan_dtype=torch.float32):
     """Like `build_fleet`, but plans scenes on a thread pool whose
     device-kernel calls coalesce through a `broker.BatchBroker` into shared
     batched executions. Scene ``draw`` = 1, 2, ... uses the rng seed
     ``seed + 1000 * draw``; the first ``batch`` plans to succeed (in
     completion order, so the kept draws depend on thread timing) are kept,
-    stacked in draw order. Returns (carry_b, q0_b, obs_b, broker): the
-    broker's counters expose how much batching was achieved."""
+    stacked in draw order. ``device_search`` routes the planners' roadmap
+    searches through the broker's "spath" key (`register_planner_kernels`).
+    Returns (carry_b, q0_b, obs_b, broker): the broker's counters expose
+    how much batching was achieved."""
     from .broker import BatchBroker, register_planner_kernels
 
     q0 = DEMO_Q0.copy() if q0 is None else np.asarray(q0, float)
     brk = BatchBroker(linger=linger, device=device, dtype=plan_dtype)
-    register_planner_kernels(brk, max_set_size=20)
+    register_planner_kernels(brk, max_set_size=20, device_search=device_search)
 
     results = {}
     errors = []

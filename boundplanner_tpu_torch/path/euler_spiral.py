@@ -196,14 +196,18 @@ def blend_corners(
             )
             pts = eval_blend(a_spl, theta, plane, offset, length, s, p[i], v1, v2)
             # containment: first half must sit in the incoming segment's
-            # set, second half in the outgoing's
+            # set, second half in the outgoing's. The straddling
+            # sub-segment pts[half - 1] -> pts[half] takes the outgoing
+            # set, so its start is held to that set too (the JAX package
+            # holds it to the incoming set only, and accepts blends whose
+            # straddling sub-segment leaves its set)
             half = (n_sub + 1) // 2
             in_ok = np.all(
                 a_sets[i - 1] @ pts[:half].T - np.asarray(b_sets[i - 1])[:, None]
                 <= 1e-9
             )
             out_ok = np.all(
-                a_sets[i] @ pts[half:].T - np.asarray(b_sets[i])[:, None] <= 1e-9
+                a_sets[i] @ pts[half - 1:].T - np.asarray(b_sets[i])[:, None] <= 1e-9
             )
             ok = bool(in_ok and out_ok)
         if not ok:

@@ -214,6 +214,9 @@ def build_path(
     return state
 
 
+build_path_np = build_path   # the JAX package's name (its demo imports it)
+
+
 def take(arr, idx):
     """Per-scene gather along axis 1: arr (B, V, ...), idx (B, S) -> (B, S, ...)."""
     bidx = torch.arange(arr.shape[0], device=arr.device)[:, None]

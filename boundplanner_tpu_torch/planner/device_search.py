@@ -12,11 +12,12 @@ kernel does (a float64 caller gets float32 costs), and keeps
 ``argmin``'s first-index rule for ties. Plain batched torch ops: the JAX
 function is plain ``jnp``, not a Pallas kernel.
 
-The JAX planner can route its searches through a broker's "spath" key;
-the port's planner does not: on the H100 one batched call for 128
-roadmaps at ``n_pad`` 64 took 12.7-25.9 ms against 4.3-10.7 ms for the
-128 host Dijkstras (``chip_smoke.py``'s ``device_search`` phase), and a
-search is a few milliseconds of a plan of seconds.
+As in the JAX package, the planner routes its searches through a
+broker's "spath" key (`parallel.broker.register_planner_kernels(...,
+device_search=True)`), off by default: on the H100 one batched call for
+128 roadmaps at ``n_pad`` 64 took 12.7-25.9 ms against 4.3-10.7 ms for
+the 128 host Dijkstras (``chip_smoke.py``'s ``device_search`` phase), and
+a search is a few milliseconds of a plan of seconds.
 """
 
 from __future__ import annotations

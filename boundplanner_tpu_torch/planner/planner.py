@@ -54,6 +54,7 @@ from .set_finder import build_obstacle_arrays, find_set_around_point, find_set_l
 from .via_opt import fit_ee_in_set, solve_via_rot
 
 FIT_ROWS = 48  # padded row count for intersection-set device problems
+SPATH_PAD = 64  # padded junction count for the batched shortest path ("spath")
 
 
 def _find_set_line_ws(p0, p1, obs, ws_min, ws_max, n_rows):
@@ -243,6 +244,23 @@ class BoundPlanner:
         a_p, b_p = _pad(a, b, FIT_ROWS)
         sol = self._run("proj", a_p, b_p, np.asarray(target, float))
         return sol.x
+
+    def _shortest_path(self, roadmap: SetRoadmap):
+        """Junction path start -> end: the host Dijkstra, or the batched
+        min-plus search (`planner.device_search`) when the broker serves
+        the "spath" key and the roadmap fits ``SPATH_PAD`` junctions, so
+        concurrent planners coalesce their searches into one call. The
+        search relaxes in float32 whatever the planner's dtype: on
+        near-ties it may pick another path than the float64 Dijkstra."""
+        n = len(roadmap.junctions)
+        if self.broker is not None and "spath" in self.broker._fns and n <= SPATH_PAD:
+            from .device_search import roadmap_adjacency
+
+            _, path, reached = self.broker.call("spath", roadmap_adjacency(roadmap, SPATH_PAD))
+            if not bool(reached):
+                raise PlanningError("roadmap: start and end not connected")
+            return [int(x) for x in path if x >= 0]
+        return roadmap.shortest_path()
 
     # ------------------------------------------------------------------
     # roadmap construction
@@ -594,7 +612,7 @@ class BoundPlanner:
         while True:
             if roadmap.connected():
                 t0 = time.perf_counter()
-                path = roadmap.shortest_path()
+                path = self._shortest_path(roadmap)
                 self.comp_time_path += time.perf_counter() - t0
                 t0 = time.perf_counter()
                 p_via, p_via_list, omega_via, sets_via = self._via_points_for(

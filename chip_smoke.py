@@ -8,10 +8,14 @@ Run from the repository root on a machine with one NVIDIA GPU (H100):
     python3 chip_smoke.py --compare-kernel-b SOURCE [--out DIR]
     python3 chip_smoke.py --compare-builders [--out DIR]
     python3 chip_smoke.py --only-solver-configs [--out DIR]
+    python3 chip_smoke.py --only-gates [--out DIR]
 
-The second form runs only the runtime phases (13-15 below); the last only
+The second form runs only the runtime phases (13-15 below); the fifth only
 builds, then runs kernel A at the retry's shape, kernel B's folds and the
-solver configurations of phase 5 (~2 min). The third
+solver configurations of phase 5 (~2 min); the last only builds, then
+runs kernel A at the probe's shape, kernel B's folds, the main path's 20
+ticks (uncounted, for gate 4's first ticks), the e2e plan and the f32
+runtime of phase 14, then phase 19 (~4 min). The third
 only builds, then times kernel B of SOURCE (another
 tree's ``csrc/line_polytope.cu``, same C entry) against this tree's in
 turns (SOURCE, this, this, SOURCE) at kernel B's folds, and checks that
@@ -36,7 +40,8 @@ Phases (each asserts; any failure exits non-zero):
    the tick's shapes, P = 12288 and P = 1, R = 15, with zero-padded rows
    and inactive obstacles, and at the planner's, P = 16 and P = 1024 (one
    and 64 coalesced `find_set_line` calls on fleet draws), one arm's tick
-   (P = 96), the escalation retry's (P = 384: 4 lanes x 96), on the inputs
+   (P = 96), the escalation retry's (P = 384: 4 lanes x 96), the
+   escalation probe's (P = 288: 3 scenes x 96), on the inputs
    of the cached fleet's first tick ("tick_real", P = 12288), and on five
    edge cases of its row rule and exits (the same finite pattern as the
    plain version, and agreement where finite);
@@ -96,7 +101,22 @@ Phases (each asserts; any failure exits non-zero):
 18. the port's examples on the card, in this process: ``rviz_bringup`` (3
     ticks; its telemetry validates against the port's IDL),
     ``boundplanner_with_mpc_example`` (3 ticks, the EE outside every box)
-    and ``fleet_example`` (one scene, 5 ticks), with their launches.
+    and ``fleet_example`` (one scene, 5 ticks), with their launches;
+19. the JAX package's quality gates (``boundplanner_tpu_torch.gates``;
+    run after phase 15): kernel A at (3, 136, 136) f32; gate 4, the cached
+    fleet for 50 ticks through ``chunked_rollout`` and ``rollout_diag``
+    (600 / 50 launches each, success >= 0.90, the first 20 ticks equal to
+    phase 5's records by value, the two loops' records equal; the worst 3
+    scenes' chronologies and scene 43's last tick reported, the records
+    saved with ``--out``); gate 2, scene 43 alone for 30 ticks (360 / 30
+    launches, kernel B at P = 96, the bar "tracks"); the escalation probe,
+    scenes 29, 43, 54 for 20 ticks without and with 4 escalation lanes
+    (240 / 20, and 240 + 48 / 20 + 1 a fired tick; kernel A at (3, 136,
+    136), kernel B at P = 288); gate 1 on phase 14's row (the path end
+    within 45 ticks, final error <= 2 mm, the EE outside every original
+    box; no fallback is reported, not asserted: f32 basin noise); and
+    the e2e scene planned in f64 through a broker with the "spath" key
+    (the key served, the host route's vias within 1e-5).
 
 Every kernel row gives the kernel's time (CUDA events), its plain
 version's, its bound (the larger of the bytes it must move over 3.35 TB/s
@@ -462,6 +482,9 @@ def kernel_b_cases(rng, dev, real):
     # the escalation retry's link sets: 4 lanes x 96 problems
     cases.append(("retry_tick", [torch.from_numpy(x).to(dev) for x in
                                  projection_batch(np.random.default_rng(384), 384)]))
+    # the escalation probe's tick and retry: 3 scenes x 96 problems
+    cases.append(("probe_tick", [torch.from_numpy(x).to(dev) for x in
+                                 projection_batch(np.random.default_rng(288), 288)]))
     cases.append(("tick_real", list(real)))
     cases.append(("edge", [torch.from_numpy(x).to(dev) for x in edge_projection_batch()]))
     return cases
@@ -614,7 +637,7 @@ def phase_main(payload, cfg, dev):
     from boundplanner_tpu_torch.ops.cuda_proj import line_polytope_projection
     from boundplanner_tpu_torch.ops.linalg import kkt_inverse
     from boundplanner_tpu_torch.parallel.batch import chunked_rollout, fleet_rollout
-    from boundplanner_tpu_torch.parallel.fleet_cache import to_torch, tree_map
+    from boundplanner_tpu_torch.parallel.fleet_cache import to_numpy, to_torch, tree_map
 
     carry, q0, obs = to_torch((payload["carry"], payload["q0"], payload["obs"]),
                               dev, torch.float32)
@@ -678,7 +701,7 @@ def phase_main(payload, cfg, dev):
     emit(result)
     # sanity floor against a broken port, below the CPU-mesh basin (0.932)
     assert success_rate >= 0.90, f"success_rate {success_rate} < 0.90"
-    return result
+    return result, to_numpy(recs)
 
 
 def phase_main_routes(payload, cfg, dev):
@@ -1236,29 +1259,33 @@ def step_counted(node):
 def drive_to_end(node, obs_orig, want, cap_s, launches):
     """Step ``node`` on the card toward its path end (RUNTIME_MAX_TICKS and
     ``cap_s`` seconds at most), asserting each step's launches ``want``
-    (kernel A, kernel B) and the invariants; adds to ``launches``."""
-    t0 = time.perf_counter()
-    while (node.mpc.phi_current[0] < node.mpc.phi_max[0] - 0.001
-           and node.k_current < RUNTIME_MAX_TICKS and time.perf_counter() - t0 < cap_s):
-        got = step_counted(node)
+    (kernel A, kernel B) and the invariants; adds to ``launches``. Returns
+    (why it stopped, the EE's least box margin over the ticks)."""
+    from boundplanner_tpu_torch.gates import drive_node
+
+    def step(n):
+        got = step_counted(n)
         assert got == want, f"launches per step {got}, expected {want}"
         launches[0] += got[0]
         launches[1] += got[1]
-        node_invariants(node, obs_orig)
+        node_invariants(n, obs_orig)
+
+    return drive_node(node, obs_orig, RUNTIME_MAX_TICKS, cap_s, step)
 
 
-def node_summary(phase, node, goal, launches, want):
-    """The row of a runtime phase: progress, goal error, fails, timings."""
+def node_summary(phase, node, goal, launches, want, stop):
+    """The row of a runtime phase: progress, goal error, fails, why the
+    drive stopped and the EE's least box margin (``stop``, from
+    `drive_to_end`), timings."""
     import numpy as np
+    from boundplanner_tpu_torch.gates import node_row
 
     tel = node.telemetry.arrays()
     pct = lambda key, q: float(np.percentile(tel[key], q))
-    reached = bool(node.mpc.phi_current[0] >= node.mpc.phi_max[0] - 0.02)
-    return {"phase": phase, "ticks": node.k_current,
-            "phi": float(node.mpc.phi_current[0]), "phi_max": float(node.mpc.phi_max[0]),
-            "path_end_reached": reached,
-            "goal_err_m": float(np.linalg.norm(node.p_lie[:3] - goal)),
-            "fails": float(sum(node.fails)), "success_share": float(tel["success"].mean()),
+    failed = np.flatnonzero(~tel["success"].astype(bool))
+    return {"phase": phase, **node_row(node, goal, *stop),
+            "success_share": float(tel["success"].mean()),
+            "failed_tick_viols": {int(t): float(tel["viol"][t]) for t in failed},
             "max_viol": float(tel["viol"].max()),
             **{f"t_comp_ms_{name}": 1e3 * pct("t_comp", q)
                for name, q in (("p50", 50), ("p95", 95), ("p99", 99), ("max", 100))},
@@ -1300,8 +1327,8 @@ def phase_runtime_f64(dev, rng, plan):
         errs.append({k: float(np.abs(getattr(card, k) - getattr(cpu, k)).max())
                      for k in ("q", "dq", "p_lie")})
         node_invariants(card, obs_orig)
-    drive_to_end(card, obs_orig, want, RUNTIME_F64_CAP_S, launches)
-    row = {**node_summary("runtime_f64", card, goal, launches, want),
+    stop = drive_to_end(card, obs_orig, want, RUNTIME_F64_CAP_S, launches)
+    row = {**node_summary("runtime_f64", card, goal, launches, want, stop),
            "card_vs_cpu_ticks": RUNTIME_COMPARE_TICKS, "card_vs_cpu_max_abs_err": errs,
            "kernel_a": kernel_a_row("runtime_f64_kkt",
                                     torch.from_numpy(spd_batch(rng, 1, dtype="float64")).to(dev),
@@ -1318,7 +1345,7 @@ def phase_runtime_f64(dev, rng, plan):
     for tick, err in enumerate(errs, 1):
         assert err["q"] < 1e-6 and err["p_lie"] < 1e-6 and err["dq"] < 1e-5, \
             f"f64 node on the card disagrees with the CPU at tick {tick}: {err}"
-    if row["path_end_reached"]:
+    if row["stopped_by"] == "path_end":
         assert row["goal_err_m"] < 0.02, f"final EE error {row['goal_err_m']}"
         assert row["fails"] <= 2, f"{row['fails']} failed ticks"
     return row
@@ -1339,10 +1366,10 @@ def phase_runtime_f32(dev, plan):
     node = MPCNode(q0, params=cfg, device=dev, dtype=torch.float32)
     node.update_reference(*args)
     launches = [0, 0]
-    drive_to_end(node, obs_orig, want, RUNTIME_F32_CAP_S, launches)
-    row = node_summary("runtime_f32", node, goal, launches, want)
+    stop = drive_to_end(node, obs_orig, want, RUNTIME_F32_CAP_S, launches)
+    row = node_summary("runtime_f32", node, goal, launches, want, stop)
     emit(row)
-    if row["path_end_reached"]:
+    if row["stopped_by"] == "path_end":
         assert row["goal_err_m"] < 0.02, f"final EE error {row['goal_err_m']} (f32)"
         assert row["fails"] <= 2, f"{row['fails']} failed ticks (f32)"
     return row, node
@@ -1396,11 +1423,11 @@ def run_runtime(dev):
     from boundplanner_tpu_torch.mpc.e2e import plan_e2e
 
     plan = plan_e2e(dev)
-    emit({"phase": "runtime_plan", "seconds": plan[4], "vias": len(plan[1][0])})
+    emit({"phase": "runtime_plan", **plan[4], "vias": len(plan[1][0])})
     rt64 = phase_runtime_f64(dev, np.random.default_rng(5), plan)
     rt32, node32 = phase_runtime_f32(dev, plan)
     parts = phase_runtime_parts(dev, plan, node32)
-    return rt64, rt32, parts
+    return rt64, rt32, parts, plan
 
 
 # the edges phase: the bound families' test cases (tests/test_bounds.py)
@@ -1673,7 +1700,237 @@ def phase_examples(dev):
     return row
 
 
+# the JAX package's quality gates on the card (`boundplanner_tpu_torch.gates`,
+# PERF.md §4): gate 4, 128 scenes x 50 ticks (`bench.py 128 50`) with the
+# worst scenes' chronologies; gate 2, scene 43 alone for 30 ticks; the
+# escalation probe on scenes 29, 43, 54 (cut from 50 ticks to 20 for time);
+# gate 1 on the runtime_f32 row; the planner's "spath" route
+GATE_LONG_TICKS, GATE_TOP = 50, 3
+GATE_SCENE, GATE_SCENE_TICKS = 43, 30
+GATE_PROBE_SCENES, GATE_PROBE_TICKS = (29, 43, 54), 20
+
+
+class shapes_seen:
+    """Records the leading shapes of the matrices that the tick hands to
+    kernel A (at ``ops.qp.kkt_inverse``) and of the problems it hands to
+    kernel B (at ``planner.set_finder.seg_poly_closest``, for a CUDA f32
+    batch, which kernel B runs) while ``run(fn)`` runs ``fn``; the calls
+    still go to the counting wrappers."""
+
+    def run(self, fn):
+        import torch
+        from boundplanner_tpu_torch.ops import qp
+        from boundplanner_tpu_torch.planner import set_finder
+
+        self.a, self.b = set(), set()
+        real_a, real_b = qp.kkt_inverse, set_finder.seg_poly_closest
+
+        def rec_a(k):
+            self.a.add(tuple(k.shape))
+            return real_a(k)
+
+        def rec_b(a, *args):
+            if a.is_cuda and a.dtype == torch.float32:
+                self.b.add(a.shape[0])
+            return real_b(a, *args)
+
+        qp.kkt_inverse, set_finder.seg_poly_closest = rec_a, rec_b
+        try:
+            return fn()
+        finally:
+            qp.kkt_inverse, set_finder.seg_poly_closest = real_a, real_b
+
+
+def phase_gates_long(payload, cfg, dev, main_recs, out_dir):
+    """Gate 4: the cached fleet for GATE_LONG_TICKS ticks in f32 (chunk
+    128) through ``chunked_rollout``, then through ``gates.rollout_diag``:
+    600 / 50 launches each, success >= 0.90, the first N_TICKS ticks equal
+    by value to the main path's records (``main_recs``), the diagnostic
+    loop's phi / success / viol equal to the rollout's. Reports the
+    chronologies of the GATE_TOP worst scenes and scene 43's last tick;
+    saves the records (``--out``)."""
+    import numpy as np
+    import torch
+    from boundplanner_tpu_torch import gates
+
+    (summary, recs, diag), _, launches = counted(
+        lambda: gates.long_horizon(payload, GATE_LONG_TICKS, GATE_TOP, CHUNK, dev,
+                                   torch.float32, watch=(GATE_SCENE,)))
+    want = solver_launches(cfg, GATE_LONG_TICKS * (len(payload["q0"]) // CHUNK), 0)
+    same20 = None
+    if main_recs is not None:
+        same20 = {k: bool(np.array_equal(recs[k][:, :N_TICKS], main_recs[k]))
+                  for k in ("phi", "success", "viol")}
+    for chron in summary["worst"]:
+        emit({"phase": "gates_long_chronology", **chron})
+    row = {"phase": "gates_long", **{k: v for k, v in summary.items() if k != "worst"},
+           "worst_scenes": [c["scene"] for c in summary["worst"]],
+           "first_ticks_equal_main": same20, "launches": launches, "want": want}
+    emit(row)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        np.savez(os.path.join(out_dir, "gates_long.npz"),
+                 **{f"rollout.{k}": v for k, v in recs.items()},
+                 **{f"diag.{k}": v for k, v in diag.items()})
+    assert summary["launches_rollout"] == want, (summary["launches_rollout"], want)
+    assert summary["launches_diag"] == want, (summary["launches_diag"], want)
+    assert launches == {k: 2 * n for k, n in want.items()}, launches
+    assert all(summary["diag_equal"].values()), summary["diag_equal"]
+    assert same20 is None or all(same20.values()), f"first {N_TICKS} ticks differ: {same20}"
+    assert summary["success_rate"] >= 0.90, f"success_rate {summary['success_rate']} < 0.90"
+    return row
+
+
+def phase_gates_scene43(payload, cfg, dev):
+    """Gate 2: scene 43 alone (batch 1) for GATE_SCENE_TICKS ticks in f32:
+    12 / 1 launches a tick, kernel B at P = 96, and the JAX gate's bar
+    "tracks" (phi never decreases, viol < 0.01, no 3 failed ticks in a
+    row)."""
+    import torch
+    from boundplanner_tpu_torch import gates
+
+    seen = shapes_seen()
+    res, secs, launches = counted(lambda: seen.run(
+        lambda: gates.scene_replay(payload, GATE_SCENE, GATE_SCENE_TICKS, dev,
+                                   torch.float32)))
+    want = solver_launches(cfg, GATE_SCENE_TICKS, 0)
+    row = {"phase": "gates_scene43", **res, "wall_s": secs, "launches": launches, "want": want,
+           "kernel_a_shapes": sorted(seen.a), "kernel_b_problems": sorted(seen.b)}
+    emit(row)
+    assert launches == want, (launches, want)
+    assert seen.a == {(1, 136, 136)} and seen.b == {96}, (seen.a, seen.b)
+    assert res["tracks"], (f"scene {GATE_SCENE} does not track: monotone "
+                           f"{res['phi_monotone']}, viol < 1 cm {res['viol_under_1cm']}, "
+                           f"longest fail run {res['longest_fail_run']}")
+    return row
+
+
+def phase_gates_probe(payload, cfg, dev):
+    """The escalation probe: scenes 29, 43, 54 together for
+    GATE_PROBE_TICKS ticks in f32, without escalation (240 / 20 launches)
+    and with 4 lanes at 6 x 8 (240 + 48 a fired tick / 20 + 1 a fired
+    tick; the retry is min(4, 3) = 3 lanes wide: kernel A at (3, 136,
+    136), kernel B at P = 288). Per-scene rows are reported."""
+    import dataclasses
+    import torch
+    from boundplanner_tpu_torch import gates
+
+    seen = shapes_seen()
+    rows, secs, launches = counted(lambda: seen.run(
+        lambda: gates.probe_escalation(payload, GATE_PROBE_SCENES, GATE_PROBE_TICKS,
+                                       device=dev, dtype=torch.float32)))
+    for arm in rows:
+        arm_cfg = dataclasses.replace(cfg, esc_lanes=arm["esc_lanes"],
+                                      esc_sqp_iters=arm["esc"][0], esc_qp_iters=arm["esc"][1])
+        arm["want"] = solver_launches(arm_cfg, GATE_PROBE_TICKS, arm["escalated_ticks"])
+    row = {"phase": "gates_probe", "scenes": list(GATE_PROBE_SCENES),
+           "ticks": GATE_PROBE_TICKS, "arms": rows, "wall_s": secs, "launches": launches,
+           "kernel_a_shapes": sorted(seen.a), "kernel_b_problems": sorted(seen.b)}
+    emit(row)
+    for arm in rows:
+        assert arm["launches"] == arm["want"], (arm["arm"], arm["launches"], arm["want"])
+    assert rows[0]["escalated_ticks"] == 0, rows[0]
+    assert launches == {k: sum(a["launches"][k] for a in rows) for k in launches}, launches
+    assert seen.a == {(3, 136, 136)} and seen.b == {288}, (seen.a, seen.b)
+    return row
+
+
+def phase_gates_obstacle(rt32):
+    """Gate 1 on the runtime_f32 row (no new run): the path end within 45
+    ticks, the final EE error <= 2 mm, the EE outside every original box
+    on every tick (asserted), and no fallback (reported: in f32 a tick
+    near the 1e-4 violation bar falls either side of it with the rounding;
+    the JAX package's own gate falls back once on the CPU, at 1.23e-4,
+    PERF.md §6). A row that stopped short of the path end (its tick or
+    second cap) fails, named as such."""
+    from boundplanner_tpu_torch import gates
+
+    passed, bars = gates.obstacle_gate(rt32)
+    row = {"phase": "gates_obstacle", "passed": passed, "bars": bars,
+           **{k: rt32[k] for k in ("ticks", "stopped_by", "path_end_reached", "fails",
+                                   "failed_tick_viols", "goal_err_m", "min_box_margin_m")}}
+    emit(row)
+    assert rt32["stopped_by"] == "path_end", \
+        f"runtime_f32 stopped by its {rt32['stopped_by']} cap before the path end: no gate"
+    missed = [name for name, ok in bars.items() if not ok and name != "no_fallbacks"]
+    assert not missed, f"obstacle gate missed: {bars}"
+    return row
+
+
+def phase_spath_plan(dev, plan):
+    """The planner's "spath" route: the e2e scene planned once in f64 on
+    the card through a `BatchBroker` with ``device_search=True``: the key
+    served, the host route's (``plan``) via count and vias within 1e-5,
+    each plan's roadmap-search time."""
+    import numpy as np
+    import torch
+    from boundplanner_tpu_torch.mpc.e2e import plan_e2e
+    from boundplanner_tpu_torch.parallel.broker import BatchBroker, register_planner_kernels
+
+    brk = BatchBroker(linger=0.0, device=dev, dtype=torch.float64)
+    register_planner_kernels(brk, device_search=True)
+    routed = plan_e2e(dev, broker=brk)
+    vias, host_vias = np.asarray(routed[1][0]), np.asarray(plan[1][0])
+    same_count = vias.shape == host_vias.shape
+    err = float(np.abs(vias - host_vias).max()) if same_count else None
+    row = {"phase": "device_search_plan", "spath_calls": brk.calls_by_key.get("spath", 0),
+           "vias": len(vias), "host_vias": len(host_vias), "via_max_abs_err": err,
+           "seconds": routed[4]["seconds"], "comp_time_path_s": routed[4]["comp_time_path"],
+           "host_seconds": plan[4]["seconds"],
+           "host_comp_time_path_s": plan[4]["comp_time_path"]}
+    emit(row)
+    assert row["spath_calls"] > 0, brk.calls_by_key
+    assert same_count and err <= 1e-5, row
+    return row
+
+
+def main_path_records(payload, cfg, dev):
+    """The main path's N_TICKS-tick records (``--only-gates``: gate 4's
+    first ticks are held to them), as numpy."""
+    import torch
+    from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
+    from boundplanner_tpu_torch.parallel.batch import chunked_rollout
+    from boundplanner_tpu_torch.parallel.fleet_cache import to_numpy, to_torch
+
+    carry, q0, obs = to_torch((payload["carry"], payload["q0"], payload["obs"]),
+                              dev, torch.float32)
+    model = FleetMPC(cfg, device=dev, dtype=torch.float32)
+    return to_numpy(chunked_rollout(carry, q0, obs, model, N_TICKS, chunk=CHUNK)[1])
+
+
+def phase_kernel_a_probe(dev):
+    """Kernel A at (3, 136, 136) f32: the escalation probe's tick and
+    retry (3 scenes; the retry min(4, 3) lanes wide), with the bars of
+    `phase_kernel_a` (its own seed)."""
+    import numpy as np
+    import torch
+
+    n = len(GATE_PROBE_SCENES)
+    k = spd_batch(np.random.default_rng(1000 + n), n, dtype="float32")
+    return kernel_a_row("kernel_a_probe", torch.from_numpy(k).to(dev), 200)
+
+
+def gate_launches(rows, kernel):
+    """A kernel's launches in each gate run (the kernels' summary line)."""
+    return {"launches_gates_long": rows["long"]["launches"][kernel],
+            "launches_gates_scene43": rows["scene43"]["launches"][kernel],
+            "launches_gates_probe": {a["arm"]: a["launches"][kernel]
+                                     for a in rows["probe"]["arms"]}}
+
+
+def run_gates(payload, cfg, dev, main_recs, rt32, plan, out_dir):
+    """The gates phase (also alone: ``--only-gates``)."""
+    long_row = phase_gates_long(payload, cfg, dev, main_recs, out_dir)
+    scene = phase_gates_scene43(payload, cfg, dev)
+    probe = phase_gates_probe(payload, cfg, dev)
+    spath = phase_spath_plan(dev, plan)
+    obstacle = phase_gates_obstacle(rt32)
+    return {"long": long_row, "scene43": scene, "probe": probe, "obstacle": obstacle,
+            "spath_plan": spath}
+
+
 def main(argv):
+    t_start = time.perf_counter()
     out_dir = compare_b = None
     if "--out" in argv:
         out_dir = argv[argv.index("--out") + 1]
@@ -1682,6 +1939,7 @@ def main(argv):
     compare_builders = "--compare-builders" in argv
     only_runtime = "--only-runtime" in argv
     only_solver_configs = "--only-solver-configs" in argv
+    only_gates = "--only-gates" in argv
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "boundplanner_tpu_torch")):
         print("chip_smoke: boundplanner_tpu_torch not found beside this script",
@@ -1719,6 +1977,24 @@ def main(argv):
     if only_runtime:
         run_runtime(dev)
         return 0
+    if only_gates:
+        from boundplanner_tpu_torch.mpc.e2e import plan_e2e
+
+        cfg = perf_mpc_params()
+        payload = load(FLEET)
+        phase_kernel_a_probe(dev)
+        phase_kernel_b(np.random.default_rng(0), dev, real_tick_batch(payload, cfg, dev))
+        # the main path's 20 ticks (uncounted), for gate 4's first ticks
+        main_recs = main_path_records(payload, cfg, dev)
+        plan = plan_e2e(dev)
+        emit({"phase": "runtime_plan", **plan[4], "vias": len(plan[1][0])})
+        rt32, _ = phase_runtime_f32(dev, plan)
+        res = run_gates(payload, cfg, dev, main_recs, rt32, plan, out_dir)
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, "gates.json"), "w") as f:
+                json.dump({"card": card, "runtime_f32": rt32, **res}, f, indent=1)
+        return 0
     cfg = perf_mpc_params()
     if compare_builders:
         rows = phase_compare_builders(cfg, dev)
@@ -1749,7 +2025,7 @@ def main(argv):
     b_all = phase_kernel_b(rng, dev, real)
     b = b_all[0]
     phase_small_f64(payload, cfg, dev)
-    main_res = phase_main(payload, cfg, dev)
+    main_res, main_recs = phase_main(payload, cfg, dev)
     phase_worst_tick(payload, cfg, dev, out_dir)
     routes = phase_main_routes(payload, cfg, dev)
     solver = phase_solver_configs(payload, dev, main_res)
@@ -1760,7 +2036,9 @@ def main(argv):
     fleet, mp_row = phase_fleet_mp(cfg, dev)
     rollout = phase_planned_rollout(fleet, cfg, dev)
     multi = phase_multi_gpu(payload, cfg, dev)
-    rt64, rt32, parts = run_runtime(dev)
+    rt64, rt32, parts, e2e_plan = run_runtime(dev)
+    a_probe = phase_kernel_a_probe(dev)
+    gate_rows = run_gates(payload, cfg, dev, main_recs, rt32, e2e_plan, out_dir)
     edges = phase_edges(dev, card, main_res, rt64, rt32)
     sync = phase_sync_fleet(cfg, dev, plan, threaded)
     examples = phase_examples(dev)
@@ -1784,11 +2062,12 @@ def main(argv):
                                           in examples["launches_by_example"].items()},
          "launches_solver_configs": {name: r["launches"]["chol_inverse"]
                                      for name, r in solver.items()},
+         **gate_launches(gate_rows, "chol_inverse"),
          **summary(a[0]), "launch_only_ms": a[0]["launch_only_ms"],
          "library": a[0]["library"],
          "shapes": [{"shape": r["shape"], "dtype": r["dtype"], **summary(r),
                      "launch_only_ms": r["launch_only_ms"]}
-                    for r in a + [a_shard, a_retry] + a_plan + [rt64["kernel_a"],
+                    for r in a + [a_shard, a_retry, a_probe] + a_plan + [rt64["kernel_a"],
                                                        rt64["kernel_a_projection"]]]},
         {"name": "line_polytope", "route": "cuda",
          "source": "boundplanner_tpu_torch/csrc/line_polytope.cu",
@@ -1805,6 +2084,7 @@ def main(argv):
                                           in examples["launches_by_example"].items()},
          "launches_solver_configs": {name: r["launches"]["line_polytope"]
                                      for name, r in solver.items()},
+         **gate_launches(gate_rows, "line_polytope"),
          **summary(b), "launch_only_ms": b["launch_only_ms"],
          "bound_ms_all_rows": b["bound_ms_all_rows"],
          "library": None,
@@ -1820,9 +2100,10 @@ def main(argv):
                        "device_search": spath, "fleet_mp": mp_row, "planned_rollout": rollout,
                        "multi_gpu": multi, "runtime_f64": rt64, "runtime_f32": rt32,
                        "runtime_parts": parts, "edges": edges, "sync_fleet": sync,
-                       "examples": examples, **kernels}, f, indent=1)
+                       "examples": examples, "gates": gate_rows, **kernels}, f, indent=1)
         with open(path + ".log") as src, open(os.path.join(out_dir, "nvcc.log"), "w") as dst:
             dst.write(src.read())
+    emit({"phase": "script", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",

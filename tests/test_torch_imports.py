@@ -44,7 +44,8 @@ def test_port_sources_found():
     names = {os.path.relpath(p, ROOT) for p in port_sources()}
     assert "chip_smoke.py" in names
     for rel in (("mpc", "bound_mpc.py"), ("idl", "__init__.py"), ("ros_compat.py",),
-                ("parallel", "sync_broker.py"), ("examples", "rviz_bringup.py")):
+                ("parallel", "sync_broker.py"), ("examples", "rviz_bringup.py"),
+                ("gates.py",)):
         assert os.path.join("boundplanner_tpu_torch", *rel) in names, rel
     assert len(names) > 20
 
