@@ -42,6 +42,7 @@ from ..robot.model import U_MAX
 from ..utils import so3
 from ..utils.device import DEFAULT_DEVICE, checked_device
 from ..utils.tree import to_numpy, to_torch, tree_map
+from . import graph as graph_mod
 from . import ocp, ocp_struct, prep
 from .solver import check_supported, solve_sqp
 
@@ -145,9 +146,8 @@ def build_tick_params(carry: MPCCarry, meas: dict, obs: ObstacleArrays,
     win = path_window(path, nr_segs)
     proj = _win_with_proj(win, carry, meas["p0"][:, 3:])
 
-    weights = torch.as_tensor(cfg.weights, dtype=q0.dtype, device=q0.device)
     weights, x_phi_d, phi_max_c = prep.shape_phi_weights(
-        weights.expand(q0.shape[0], -1), path.phi_max, carry.phi_current
+        st.weights.expand(q0.shape[0], -1), path.phi_max, carry.phi_current
     )
     a_j, b_j = prep.link_collision_sets(q0, meas["qf"], obs, st)
 
@@ -248,7 +248,6 @@ def mpc_tick(carry: MPCCarry, meas: dict, obs: ObstacleArrays, cfg: MPCParams, s
         so3.matrix_to_rotvec(win_r["r_vias"][:, 0]), dp_ref0[:, 3:], phi_sw0, phi_anchor
     )
     iw_anchor = p_ref0[:, 3:] + (phi_anchor - phi_sw0)[:, None] * dp_ref0[:, 3:]
-    split_reset = torch.tensor([0] + [n] * nr_segs, dtype=torch.int32, device=dev)
     pick_anchor = lambda a, b: _sel(reanchor, a, b)
     carry = carry._replace(
         path=path_r,
@@ -257,7 +256,7 @@ def mpc_tick(carry: MPCCarry, meas: dict, obs: ObstacleArrays, cfg: MPCParams, s
         pr_ref=pick_anchor(pr_anchor, carry.pr_ref),
         iw_ref=pick_anchor(iw_anchor, carry.iw_ref),
         slacks0=pick_anchor(torch.zeros_like(carry.slacks0), carry.slacks0),
-        split_idx=pick_anchor(split_reset.expand(bsz, -1), carry.split_idx),
+        split_idx=pick_anchor(st.split_reset.expand(bsz, -1), carry.split_idx),
         switch=carry.switch & ~reanchor,
     )
 
@@ -460,20 +459,54 @@ class FleetMPC(nn.Module):
     and float32 as defaults: the structure is built in float64 and then
     cast to ``dtype`` on ``device`` (the fleet's), with the causal chunk
     split when ``cfg`` asks for it. A combination the JAX package rejects
-    raises ``ValueError`` here (`solver.check_supported`)."""
+    raises ``ValueError`` here (`solver.check_supported`).
 
-    def __init__(self, cfg: MPCParams, device=DEFAULT_DEVICE, dtype=torch.float32):
+    ``graph`` chooses the route on the card: ``None`` (the default)
+    replays one CUDA graph per tick function, configuration and input
+    signature (`mpc.graph.TickGraph`, the JAX package's ``jax.jit``) on
+    CUDA tensors and runs eagerly on the CPU; ``False`` runs eagerly on
+    the card too; ``True`` on the CPU raises. ``graphs`` maps each key to
+    its `TickGraph`. On a CPU model, setting ``graph = True`` afterwards
+    runs each signature's graph body eagerly (what the tests hold to the
+    eager route)."""
+
+    def __init__(self, cfg: MPCParams, device=DEFAULT_DEVICE, dtype=torch.float32,
+                 graph: bool | None = None):
         super().__init__()
         check_supported(cfg)
         device = checked_device(device)
+        if graph and device.type != "cuda":
+            raise ValueError(f"graph=True needs a CUDA device, not {device}")
         self.cfg = cfg
+        self.graph = device.type == "cuda" if graph is None else graph
+        self.graphs = {}
         self.st = ocp_struct.build(cfg.n, cfg.dt, cfg.robot,
-                                   cfg.struct_ocp and cfg.struct_chunked)
+                                   cfg.struct_ocp and cfg.struct_chunked,
+                                   cfg.weights, cfg.nr_segs)
         self.to(device, dtype)
 
+    def _apply(self, fn, *args, **kwargs):
+        self.graphs = {}   # graphs hold the old buffers
+        return super()._apply(fn, *args, **kwargs)
+
     @torch.no_grad()
+    def run(self, fn, cfg: MPCParams, carry: MPCCarry, meas: dict, obs: ObstacleArrays):
+        """``fn(carry, meas, obs, cfg, self.st)``: eagerly, or replayed from
+        the graph of (``fn``, ``cfg``, the inputs' signature)."""
+        if not self.graph:
+            return fn(carry, meas, obs, cfg, self.st)
+        inputs = (carry, meas, obs)
+        key = (fn, cfg, graph_mod.signature(inputs))
+        runner = self.graphs.get(key)
+        if runner is None:
+            st = self.st
+            runner = self.graphs[key] = graph_mod.TickGraph(
+                lambda c, m, o: fn(c, m, o, cfg, st), inputs)
+        return runner(*inputs)
+
     def tick(self, carry: MPCCarry, meas: dict, obs: ObstacleArrays):
-        return mpc_tick(carry, meas, obs, self.cfg, self.st)
+        """One control period (``mpc_tick``) at the model's configuration."""
+        return self.run(mpc_tick, self.cfg, carry, meas, obs)
 
     forward = tick
 
@@ -494,7 +527,8 @@ class BoundMPC:
     """The reference's single-scene API (``__init__``/``update``/``step``)
     over one `FleetMPC` at batch 1. ``carry`` and ``obs`` hold one scene's
     tensors on ``device`` (no scene axis, as in the JAX package); ``step``
-    takes and returns numpy."""
+    takes and returns numpy. ``graph`` is `FleetMPC`'s: on the card each
+    step replays the tick's graph unless it is ``False``."""
 
     def __init__(
         self,
@@ -511,14 +545,16 @@ class BoundMPC:
         device=DEFAULT_DEVICE,
         dtype=torch.float64,
         cartesian_acc: bool = False,
+        graph: bool | None = None,
     ):
         self.cfg = params or MPCParams()
         self.device = checked_device(device)
         self.dtype = dtype
+        self.graph = graph
         # opt-in: report the true Cartesian acceleration J ddq + dJ dq in
         # traj_data["a"] instead of the reference's alias of the velocity
         self.cartesian_acc = cartesian_acc
-        self.model = FleetMPC(self.cfg, device=self.device, dtype=dtype)
+        self.model = FleetMPC(self.cfg, device=self.device, dtype=dtype, graph=graph)
         self.obs = self._on_device(build_obstacle_arrays(obstacles, size_increase=0.0))
         path = build_path(
             pos_points, rot_points, bp1, br1, e_r_bound, a_sets, b_sets,
@@ -568,7 +604,7 @@ class BoundMPC:
         if warm_carry and cfg.n != self.cfg.n:
             warm_carry = False  # decision-vector size changed
         if cfg != self.cfg:
-            self.model = FleetMPC(cfg, device=self.device, dtype=self.dtype)
+            self.model = FleetMPC(cfg, device=self.device, dtype=self.dtype, graph=self.graph)
         self.cfg = cfg
         self.obs = self._on_device(build_obstacle_arrays(obstacles, size_increase=0.0))
         path = build_path(

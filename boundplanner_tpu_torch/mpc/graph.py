@@ -1,0 +1,227 @@
+"""CUDA-graph replay of the fused tick: the port's counterpart of the JAX
+package's ``jax.jit`` of ``mpc_tick``.
+
+A `TickGraph` holds one input signature of a tick function (the shapes,
+dtypes and device of every input leaf; `FleetMPC` keys its graphs also by
+the function and the configuration, as ``jax.jit`` keys its traces by the
+static arguments): static input buffers, one captured
+``torch.cuda.CUDAGraph`` and its static outputs.
+
+- The first call warms up on a side stream: one eager run of the tick on
+  the static inputs, which builds the kernels, sets kernel A's
+  shared-memory attribute and sets up that stream's cuBLAS workspace. Its
+  result is the call's result. Then the function is captured on the same
+  stream into a private memory pool.
+- Every later call copies the caller's carry, measurements and obstacles
+  into the static inputs, replays the graph, and returns clones of the
+  static outputs: the caller keeps value semantics (the escalation retry
+  reuses the pre-tick carry).
+- A capture or replay that fails raises; nothing falls back to the eager
+  route.
+
+The kernel wrappers count their launches in Python, which a replay does
+not run. A capture launches nothing: it records how many launches of each
+counted wrapper (`WRAPPERS`) the graph holds and takes them back off the
+counters; each replay adds them again.
+
+On the CPU there is nothing to capture: a `TickGraph` of CPU tensors runs
+its body eagerly (copy-in, the function on the static inputs, clone-out),
+the CPU tests' view of what the card replays.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+from torch.overrides import TorchFunctionMode
+from torch.utils._pytree import tree_leaves
+
+from ..ops.cuda_proj import line_polytope_projection
+from ..ops.linalg import kkt_inverse
+from ..utils.tree import tree_map
+
+# the wrappers whose ``launches`` a replay adds to (the functions
+# themselves: a caller that swaps a module's name for another route still
+# reads the counts here), and their kernels' names
+WRAPPERS = (kkt_inverse, line_polytope_projection)
+COUNTED = ("chol_inverse", "line_polytope")
+
+
+def leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def signature(tree) -> tuple:
+    """The shapes, dtypes and devices of a tree's tensor leaves."""
+    return tuple((tuple(t.shape), t.dtype, t.device) for t in leaves(tree))
+
+
+_SIDE_STREAMS: dict = {}
+
+
+def side_stream(device: torch.device) -> torch.cuda.Stream:
+    """One warm-up and capture stream per card, so that a capture finds the
+    cuBLAS workspace that its warm-up set up."""
+    stream = _SIDE_STREAMS.get(device.index)
+    if stream is None:
+        stream = _SIDE_STREAMS[device.index] = torch.cuda.Stream(device)
+    return stream
+
+
+def _reserved(device) -> int:
+    return torch.cuda.memory_stats(device).get("reserved_bytes.all.current", 0)
+
+
+class TickGraph:
+    """One signature of ``fn(*inputs) -> outputs`` (trees of tensors),
+    replayed from a CUDA graph on the card. ``launches`` (per `COUNTED`
+    kernel), ``capture_s`` and ``pool_bytes`` (the card memory the capture
+    reserved) describe the graph once captured; ``replays`` counts its
+    replays."""
+
+    def __init__(self, fn, inputs):
+        self.fn = fn
+        self.static_in = tree_map(torch.empty_like, inputs)
+        self.device = leaves(self.static_in)[0].device
+        self.graph = None
+        self.static_out = None
+        self.launches = None
+        self.capture_s = None
+        self.pool_bytes = None
+        self.replays = 0
+
+    def _copy_in(self, inputs):
+        tree_map(lambda dst, src: dst.copy_(src), self.static_in, inputs)
+
+    def body(self, inputs):
+        """The eager run of what the graph holds, with its copy-in and
+        clone-out."""
+        self._copy_in(inputs)
+        return tree_map(torch.clone, self.fn(*self.static_in))
+
+    def __call__(self, *inputs):
+        if self.device.type != "cuda":
+            return self.body(inputs)
+        with torch.cuda.device(self.device):
+            if self.graph is None:
+                return self._warm_up_and_capture(inputs)
+            self._copy_in(inputs)
+            self.graph.replay()
+            for wrapper, n in zip(WRAPPERS, self.launches):
+                wrapper.launches += n
+            self.replays += 1
+            return tree_map(torch.clone, self.static_out)
+
+    def _warm_up_and_capture(self, inputs):
+        current = torch.cuda.current_stream(self.device)
+        side = side_stream(self.device)
+        self._copy_in(inputs)
+        side.wait_stream(current)
+        try:
+            with torch.cuda.stream(side):
+                first = self.fn(*self.static_in)
+        finally:
+            current.wait_stream(side)
+        result = tree_map(torch.clone, first)
+        del first
+
+        before = [w.launches for w in WRAPPERS]
+        torch.cuda.synchronize(self.device)
+        # the capture empties the allocator's cache first; so does this,
+        # for the reserved bytes to grow by the private pool alone
+        torch.cuda.empty_cache()
+        reserved, t0 = _reserved(self.device), time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                static_out = self.fn(*self.static_in)
+        finally:
+            self.launches = [w.launches - b for w, b in zip(WRAPPERS, before)]
+            for w, b in zip(WRAPPERS, before):
+                w.launches = b
+        torch.cuda.synchronize(self.device)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = _reserved(self.device) - reserved
+        self.graph, self.static_out = graph, static_out
+        return result
+
+    def stats(self) -> dict:
+        first = leaves(self.static_in)[0]
+        floats = [t.dtype for t in leaves(self.static_in) if t.is_floating_point()]
+        return {"batch": int(first.shape[0]) if first.dim() else None,
+                "dtype": str(floats[0]).split(".")[-1] if floats else None,
+                "launches": dict(zip(COUNTED, self.launches or (0, 0))),
+                "capture_s": self.capture_s, "pool_bytes": self.pool_bytes,
+                "replays": self.replays}
+
+
+_UNSET = {torch.empty, torch.empty_like, torch.empty_strided, torch.Tensor.new_empty,
+          torch.Tensor.new_empty_strided}
+
+
+class _Fingerprints(TorchFunctionMode):
+    """Records, for every tensor that a torch call returns (but the
+    uninitialised ones of ``empty*``), the sum and absolute sum of its
+    finite entries and the count of the others, in float64, beside the
+    call's name. Under a capture the records are captured too, and a replay
+    fills them. Calls inside a ``torch.func`` transform (``vmap``, ``jvp``)
+    are not recorded: their tensors do not leave it; the first call after
+    it that reads its results shows a difference made inside."""
+
+    def __init__(self):
+        super().__init__()
+        self.names, self.prints = [], []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in _UNSET or torch._C._functorch.peek_interpreter_stack() is not None:
+            return out
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                d = t.detach().to(torch.float64)
+                fin = torch.isfinite(d)
+                d = torch.where(fin, d, 0.0)
+                self.prints.append(torch.stack([d.sum(), d.abs().sum(),
+                                                (~fin).sum().to(torch.float64)]))
+                self.names.append(getattr(func, "__qualname__", str(func)))
+        return out
+
+
+def first_difference(fn, inputs):
+    """The first op whose outputs differ between an eager run of
+    ``fn(*inputs)`` and a replay of its capture, on the card: None when
+    every op agrees, else {"index", "op", "eager", "graph"} (the op's
+    fingerprint in each route: sum, absolute sum, non-finite count), or
+    the first op where the two runs' op sequences part. A diagnostic: the
+    capture's own launches are taken back off the counters."""
+    device = leaves(inputs)[0].device
+    eager, eager_in = _Fingerprints(), tree_map(torch.clone, inputs)
+    with torch.no_grad(), eager:
+        fn(*eager_in)
+    replayed, static_in = _Fingerprints(), tree_map(torch.clone, inputs)
+    before = [w.launches for w in WRAPPERS]
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize(device)
+    try:
+        with torch.no_grad(), torch.cuda.graph(graph, stream=side_stream(device),
+                                                capture_error_mode="thread_local"):
+            with replayed:
+                fn(*static_in)
+    finally:
+        for w, b in zip(WRAPPERS, before):
+            w.launches = b
+    graph.replay()
+    torch.cuda.synchronize(device)
+    for i, (name_e, name_g) in enumerate(zip(eager.names, replayed.names)):
+        a, b = eager.prints[i], replayed.prints[i]
+        if name_e != name_g or not torch.equal(a, b):
+            return {"index": i, "op": name_e, "graph_op": name_g,
+                    "eager": a.tolist(), "graph": b.tolist()}
+    if len(eager.names) != len(replayed.names):
+        i = min(len(eager.names), len(replayed.names))
+        return {"index": i, "op": "end of one run", "eager_ops": len(eager.names),
+                "graph_ops": len(replayed.names)}
+    return None

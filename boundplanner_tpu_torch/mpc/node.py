@@ -2,7 +2,9 @@
 ``boundplanner_tpu/mpc/node.py``): forward kinematics -> MPC step ->
 apply the first jerk column -> integrate the joint state one dt, with
 per-tick telemetry. The host state (q, dq, ddq, jerk, pose) is numpy;
-the kinematics and the MPC run on ``device`` (the card by default).
+the kinematics and the MPC run on ``device`` (the card by default),
+where each step replays the tick's CUDA graph unless ``graph=False``
+(`BoundMPC`).
 """
 
 from __future__ import annotations
@@ -22,8 +24,9 @@ from .bound_mpc import BoundMPC
 
 class MPCNode:
     def __init__(self, q0, params: MPCParams | None = None, realtime: bool = False,
-                 device=DEFAULT_DEVICE, dtype=torch.float64):
+                 device=DEFAULT_DEVICE, dtype=torch.float64, graph: bool | None = None):
         self.params = params or MPCParams()
+        self.graph = graph
         self.dt = self.params.dt
         self.realtime = realtime
         self.device = device
@@ -57,7 +60,7 @@ class MPCNode:
         self.mpc = BoundMPC(
             p_via, r_via, bp1, br1, e_r_bound, a_sets, b_sets,
             obstacles=[], p0=self.p0, params=self.params,
-            device=self.device, dtype=self.dtype,
+            device=self.device, dtype=self.dtype, graph=self.graph,
         )
         self.q = self.q0.copy()
         self.qf = self.q0.copy()

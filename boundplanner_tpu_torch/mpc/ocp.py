@@ -295,10 +295,17 @@ def local_inputs(traj, n: int, chain):
     )
 
 
+def terminal_slack_rows(t):
+    """Rows 0-3 and 5 of the 6 slack rows (the terminal residual leaves
+    row 4 out), as slices: an index list would be copied from the host on
+    every call, which a CUDA graph cannot hold."""
+    return torch.cat([t[:4], t[5:6]])
+
+
 def terminal_residuals(slacks, dslacks, v_last, w):
     return torch.cat(
         [
-            torch.sqrt(w[8]) * slacks[[0, 1, 2, 3, 5]],
+            torch.sqrt(w[8]) * terminal_slack_rows(slacks),
             torch.sqrt(w[10]) * dslacks,
             10.0 * v_last,  # sqrt(100)
         ]

@@ -169,7 +169,7 @@ def evaluate_with_jac(x, params, cfg: MPCParams, st):
     r_term = ocp.terminal_residuals(slacks, traj["dslacks"], traj["v"][n - 1], w)
     jr_term = torch.cat(
         [
-            torch.sqrt(w[8]) * ddsl[[0, 1, 2, 3, 5]],
+            torch.sqrt(w[8]) * ocp.terminal_slack_rows(ddsl),
             torch.sqrt(w[10]) * ddsl,
             10.0 * dv[-1],
         ]
@@ -296,7 +296,7 @@ def evaluate_with_jac_structured(x, params, cfg: MPCParams, st):
     r_term = ocp.terminal_residuals(slacks, traj["dslacks"], traj["v"][n - 1], w)
     jr_term = torch.cat(
         [
-            torch.sqrt(w[8]) * ddsl[[0, 1, 2, 3, 5]],
+            torch.sqrt(w[8]) * ocp.terminal_slack_rows(ddsl),
             torch.sqrt(w[10]) * ddsl,
             10.0 * dv[-1],
         ]

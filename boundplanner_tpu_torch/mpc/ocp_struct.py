@@ -75,9 +75,13 @@ def layout(n: int) -> Layout:
 
 class OCPStruct(nn.Module):
     """Static structure of the condensed OCP for horizon n, period dt and
-    robot (float64 buffers until ``.to()``)."""
+    robot (float64 buffers until ``.to()``), with the tick's two
+    configuration constants: the objective ``weights`` and ``split_reset``,
+    the re-anchor's split indices [0, n, ..., n] over ``nr_segs`` segments
+    (int32). Held as buffers, the tick copies nothing from the host."""
 
-    def __init__(self, n: int, dt: float, robot: str = "iiwa14", chunked: bool = False):
+    def __init__(self, n: int, dt: float, robot: str = "iiwa14", chunked: bool = False,
+                 weights=(), nr_segs: int = 0):
         super().__init__()
         self.n = n
         self.dt = dt
@@ -124,6 +128,9 @@ class OCPStruct(nn.Module):
         cols += [o + 7 + n] + list(range(o + 8 + n, o + 8 + n + half + 1))
         assert len(cols) == lay.n_cols_a
         self.register_buffer("cols_a", torch.as_tensor(cols, dtype=torch.long))
+        buf("weights", np.asarray(weights, dtype=np.float64))
+        self.register_buffer("split_reset", torch.as_tensor([0] + [n] * nr_segs,
+                                                            dtype=torch.int32))
         self.chain = Chain(robot)
 
     # ---- factored link-collision rows ------------------------------------
@@ -283,7 +290,8 @@ class OCPStruct(nn.Module):
         return out
 
 
-def build(n: int, dt: float, robot: str = "iiwa14", chunked: bool = False) -> OCPStruct:
+def build(n: int, dt: float, robot: str = "iiwa14", chunked: bool = False, weights=(),
+          nr_segs: int = 0) -> OCPStruct:
     """The structure, flat or chunked; the dense routes (``struct_ocp=False``)
     build it too, for the chain, the limits and ``tail_values``."""
-    return OCPStruct(n, dt, robot, chunked)
+    return OCPStruct(n, dt, robot, chunked, weights, nr_segs)

@@ -43,7 +43,8 @@ class _Captured(Exception):
 def capture_tick_inputs(carry, q0, obs, model):
     """The (a, b, p0, p1) that the first tick of ``fleet_rollout`` hands to
     ``seg_poly_closest`` (the link collision sets), on the fleet's device
-    and dtype. The tick stops there."""
+    and dtype. The tick stops there. ``model`` takes the eager route
+    (``graph=False``): a replayed graph makes no Python call."""
     from ..parallel.batch import fleet_rollout
     from ..planner import set_finder
 
@@ -168,7 +169,7 @@ def main(argv):
     payload = load(args_ns.fleet)
     carry, q0, obs = to_torch((payload["carry"], payload["q0"], payload["obs"]), device,
                               torch.float32)
-    model = FleetMPC(perf_mpc_params(), device=device, dtype=torch.float32)
+    model = FleetMPC(perf_mpc_params(), device=device, dtype=torch.float32, graph=False)
     # the count replay and its plain reference run on the host
     args = tuple(t.cpu() for t in capture_tick_inputs(carry, q0, obs, model))
     x, phi, counts = replay(*(t.numpy() for t in args))

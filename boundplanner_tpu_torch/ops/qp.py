@@ -325,9 +325,10 @@ def solve_line_projection(g_mat, h_vec, p0, p1, iters: int = 30):
     p_mat = torch.cat([top, bottom], dim=-2)
     q_vec = torch.cat([-2.0 * p0, (2.0 * torch.sum(p0 * d, dim=-1))[..., None]], dim=-1)
     m = h_vec.shape[-1]
+    # scalars written with fill_: an assignment would copy each from the host
     phi_rows = torch.zeros((2, 4), dtype=dtype, device=dev)
-    phi_rows[0, 3] = 1.0
-    phi_rows[1, 3] = -1.0
+    phi_rows[0, 3].fill_(1.0)
+    phi_rows[1, 3].fill_(-1.0)
     g_full = torch.cat(
         [
             torch.cat([g_mat, torch.zeros((bsz, m, 1), dtype=dtype, device=dev)], dim=-1),
@@ -335,9 +336,9 @@ def solve_line_projection(g_mat, h_vec, p0, p1, iters: int = 30):
         ],
         dim=-2,
     )
-    h_full = torch.cat(
-        [h_vec, torch.tensor([1.0, 0.0], dtype=dtype, device=dev).expand(bsz, 2)], dim=-1
-    )
+    h_phi = torch.zeros((bsz, 2), dtype=dtype, device=dev)
+    h_phi[:, 0].fill_(1.0)
+    h_full = torch.cat([h_vec, h_phi], dim=-1)
     sol = solve_qp(p_mat, q_vec, g_full, h_full, iters=iters)
     return sol.x[..., :3], sol.x[..., 3], sol
 

@@ -3,16 +3,20 @@
 ``_escalate_failed_lanes``, ``fleet_rollout`` and ``chunked_rollout`` of
 ``boundplanner_tpu/parallel/batch.py``).
 
-The JAX package's ``lax.scan`` over ticks becomes a Python loop with a
-fixed trip count; the scene axis is the leading axis of every tensor.
-Where the JAX functions take the static ``cfg``, these take the
+The JAX package's jitted ``lax.scan`` over ticks becomes a Python loop
+with a fixed trip count whose tick replays one CUDA graph on the card
+(`FleetMPC.tick`: one graph per configuration and input signature, the
+JAX package's compiled tick); the plant step between ticks runs eagerly.
+The scene axis is the leading axis of every tensor. Where the JAX
+functions take the static ``cfg``, these take the
 `mpc.bound_mpc.FleetMPC` module that carries it with its buffers.
 
 With ``cfg.esc_lanes > 0`` a tick whose failing lanes are still eligible
 re-runs the whole tick for the first ``esc_lanes`` of them at the
 escalated budget (``esc_sqp_iters`` / ``esc_qp_iters``), in a sub-batch of
-fixed width. Whether any lane failed is JAX's batch-level ``lax.cond``;
-here it is one host check per tick. ``esc_pallas``, like ``pallas_kkt``,
+fixed width, through the model's graph of that width and budget. Whether
+any lane failed is JAX's batch-level ``lax.cond``; here it is one host
+check per tick, between the two graphs. ``esc_pallas``, like ``pallas_kkt``,
 chooses nothing: the retry factors through kernel A as every tick does.
 """
 
@@ -64,10 +68,11 @@ def _plant_measurement(q, dq, ddq, jerk, qf, chain):
 
 
 def _escalation_tick(model: FleetMPC):
-    """The retry's tick: the model's structure at the escalated budget."""
+    """The retry's tick: the model's structure at the escalated budget, with
+    its own graph."""
     cfg = dataclasses.replace(model.cfg, sqp_iters=model.cfg.esc_sqp_iters,
                               qp_iters=model.cfg.esc_qp_iters, esc_lanes=0)
-    return lambda c, m, o: mpc_tick(c, m, o, cfg, model.st)
+    return lambda c, m, o: model.run(mpc_tick, cfg, c, m, o)
 
 
 def _escalate_failed_lanes(carry_in, meas, obs, carry_n, out, cfg: MPCParams, tick_fn,

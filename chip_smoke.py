@@ -9,11 +9,12 @@ Run from the repository root on a machine with one NVIDIA GPU (H100):
     python3 chip_smoke.py --compare-builders [--out DIR]
     python3 chip_smoke.py --only-solver-configs [--out DIR]
     python3 chip_smoke.py --only-gates [--out DIR]
+    python3 chip_smoke.py --only-graph [--out DIR]
 
-The second form runs only the runtime phases (13-15 below); the fifth only
-builds, then runs kernel A at the retry's shape, kernel B's folds and the
-solver configurations of phase 5 (~2 min); the last only builds, then
-runs kernel A at the probe's shape, kernel B's folds, the main path's 20
+The second form runs only the runtime phases (13-15 below); the fifth
+only builds, then runs kernel A at the retry's shape, kernel B's folds
+and the solver configurations of phase 5 (~2 min); the sixth only
+builds, then runs kernel A at the probe's shape, kernel B's folds, the main path's 20
 ticks (uncounted, for gate 4's first ticks), the e2e plan and the f32
 runtime of phase 14, then phase 19 (~4 min). The third
 only builds, then times kernel B of SOURCE (another
@@ -23,7 +24,8 @@ both give the same outputs by value; it exits non-zero where they differ.
 The fourth only builds, then plans the fleet of phase 9 with the threaded
 and the phase-synchronous builder in turns (threaded, sync, sync,
 threaded): each run's plans/s, kept draws, broker counters and launches,
-and sound corridors (asserted).
+and sound corridors (asserted). The last only builds, then runs phase 5b
+below and the single arm's route comparison of phase 14 (~4 min).
 
 Phases (each asserts; any failure exits non-zero):
 
@@ -54,6 +56,16 @@ Phases (each asserts; any failure exits non-zero):
    card at batch 128 and at batch 1; then the same fleet's quality with a
    kernel's route swapped (kernel A
    again, its plain version, kernel A in f64, kernel B's plain version);
+   then (5b, ``graph``) the first eager tick of four configurations at
+   128 scenes and of ``MPCParams()`` in f64 at batch 1 under
+   ``torch.cuda.set_sync_debug_mode("error")``, and the graph route
+   (``FleetMPC``'s default on the card: one CUDA graph per configuration
+   and input signature) against the eager route (``graph=False``): the
+   main path in turns (eager, graph, eager, graph) with solves/s,
+   launches and records equal bit for bit (else the first differing tick
+   and op), each route's ``torch.profiler`` trace of two ticks (kernel
+   names, device time, busy share), the batch-1 latency in f32 and f64,
+   every capture's seconds and memory pool;
    then the solver configurations (``solver_configs``: the chunked Grams,
    the factored link rows, the dense tail, ADMM, the frozen KKT factor,
    the paired warm start, 4 escalation lanes) on the same fleet for 10
@@ -87,7 +99,9 @@ Phases (each asserts; any failure exits non-zero):
     with ``MPCParams()`` in f64 (the first 3 ticks also on the CPU) toward
     the path end, with kernel A's (1, 136, 136) and (96, 4, 4) f64 rows;
 14. the same plan through ``MPCNode`` with ``perf_mpc_params()`` in f32,
-    the 10 Hz loop, with ``t_comp``/``t_loop`` percentiles;
+    the 10 Hz loop, with ``t_comp``/``t_loop`` percentiles; then
+    (``runtime_routes``) both nodes for a few ticks with each route,
+    eager and graph, their ``t_comp``/``t_loop`` p50/p95;
 15. IK on the card against the CPU, and a checkpoint saved and resumed on
     the card;
 16. the edges: the error-bound families (``mpc/bounds.py``) and the rest of
@@ -118,7 +132,9 @@ Phases (each asserts; any failure exits non-zero):
     the e2e scene planned in f64 through a broker with the "spath" key
     (the key served, the host route's vias within 1e-5).
 
-Every kernel row gives the kernel's time (CUDA events), its plain
+Every kernel row gives the kernel's time (CUDA events), its time inside
+a CUDA graph of 20 calls (``graph_ms``: the wrapper's host work left
+out, as in the tick's graph), its plain
 version's, its bound (the larger of the bytes it must move over 3.35 TB/s
 and its operations over the card's peak for their type, 67 TFLOP/s f32 or
 34 TFLOP/s f64 outside the tensor cores, which it names as ``bound_by``),
@@ -205,6 +221,17 @@ SOLVER_CONFIGS = {
     "esc4": dict(esc_lanes=4),
 }
 SOLVER_FLOORED = ("chunked", "link", "dense_tail", "esc4")
+# the graph route against the eager route: the main path in turns, the
+# profile's ticks, the single arm's ticks per route (the f64 eager tick
+# takes 3-5 s), the configurations whose first eager tick runs under the
+# sync check, and the kernels' device names in the profile
+GRAPH_AB = ("eager", "graph", "eager", "graph")
+GRAPH_PROFILE_TICKS = 2
+GRAPH_NODE_TICKS = {"float32": 20, "float64": 8}
+SYNC_CONFIGS = {"perf": {}, "esc4": dict(esc_lanes=4), "kkt2": dict(kkt_every=2),
+                "admm": dict(struct_tail=False, qp_solver="admm")}
+KERNEL_DEVICE_NAMES = {"chol_inverse": "chol_inverse_kernel",
+                       "line_polytope": "line_polytope_kernel"}
 # the fleet tier: the process-pool builder (MP_SCENES scenes, its default
 # count of spawned workers, blocks of MP_BLOCK draws), the batched shortest path
 # (SPATH_SCENES roadmaps padded to SPATH_PAD junctions), and the dry run
@@ -241,6 +268,42 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps=20, rounds=10):
+    """Mean milliseconds per call of ``fn`` inside a CUDA graph: ``reps``
+    calls captured once (after a warm-up on the capture stream), the graph
+    replayed ``rounds`` times between CUDA events. The wrappers' host work
+    is not in it. Each replay adds its launches to the counts as the tick's
+    graphs do (`mpc.graph`)."""
+    import torch
+    from boundplanner_tpu_torch.mpc import graph as graph_mod
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    side = graph_mod.side_stream(dev)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    wrappers = graph_mod.WRAPPERS
+    before = [w.launches for w in wrappers]
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        for _ in range(reps):
+            fn()
+    per_replay = [w.launches - b for w, b in zip(wrappers, before)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    g.replay()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(rounds):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    for w, b, n in zip(wrappers, before, per_replay):
+        w.launches = b + (1 + rounds) * n
+    return start.elapsed_time(end) / (reps * rounds)
 
 
 def spd_batch(rng, bsz, n=136, m=400, dtype="float32"):
@@ -320,6 +383,7 @@ def kernel_a_row(phase, k, reps):
     abs_err = (li - lp).abs().amax().item()
     rel_err = abs_err / lp.abs().amax().item()
     ms = cuda_ms(lambda: kkt_inverse(k), reps)
+    in_graph_ms = graph_ms(lambda: kkt_inverse(k))
     launch_only_ms = cuda_ms(lambda: entry(*bare), reps)
     plain_ms = cuda_ms(lambda: kkt_inverse_plain(k), 3)
     library_ms = cuda_ms(library, reps)
@@ -330,7 +394,8 @@ def kernel_a_row(phase, k, reps):
     bound_ms, bound_by = bound(bytes_moved, bsz * 2 * n ** 3 / 3, dtype)
     row = {"phase": phase, "shape": list(k.shape), "dtype": dtype, "max_abs_err": abs_err,
            "max_rel_err": rel_err, "resid_inf_kernel": res_k, "resid_inf_plain": res_p,
-           "upper_zero": True, "ms": ms, "launch_only_ms": launch_only_ms,
+           "upper_zero": True, "ms": ms, "graph_ms": in_graph_ms,
+           "launch_only_ms": launch_only_ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "roofline_share": bound_ms / ms,
            "library": "torch.linalg.cholesky_ex + torch.linalg.solve_triangular",
@@ -461,7 +526,9 @@ def real_tick_batch(payload, cfg, dev):
 
     carry, q0, obs = to_torch((payload["carry"], payload["q0"], payload["obs"]),
                               dev, torch.float32)
-    return capture_tick_inputs(carry, q0, obs, FleetMPC(cfg, device=dev, dtype=torch.float32))
+    # eager: the inputs are taken from a Python call inside the tick
+    return capture_tick_inputs(carry, q0, obs,
+                               FleetMPC(cfg, device=dev, dtype=torch.float32, graph=False))
 
 
 def kernel_b_cases(rng, dev, real):
@@ -527,6 +594,7 @@ def phase_kernel_b(rng, dev, real):
         err = max(float(torch.where(torch.isfinite(u) & torch.isfinite(v), u - v, 0.0)
                         .abs().amax()) for u, v in zip(out_k, out_p))
         ms = cuda_ms(lambda: line_polytope_projection(*args), 50)
+        in_graph_ms = graph_ms(lambda: line_polytope_projection(*args))
         launch_only_ms = kernel_b_launch_only_ms(entry, args, 50)
         plain_ms = cuda_ms(lambda: line_polytope_projection_plain(*args), 5)
         bytes_moved = sum(t.numel() * t.element_size() for t in (*args, *out_k))
@@ -543,7 +611,8 @@ def phase_kernel_b(rng, dev, real):
                "kept_rows": kept, "chain_warp_max_mean": float(warps.mean()),
                "chain_warp_max_max": int(warps.max()),
                "max_abs_err": err, "same_finite_pattern": same_pattern,
-               "ms": ms, "launch_only_ms": launch_only_ms, "plain_ms": plain_ms,
+               "ms": ms, "graph_ms": in_graph_ms, "launch_only_ms": launch_only_ms,
+               "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by, "bound_ms_all_rows": bound_all,
                "roofline_share": bound_ms / ms, "library_ms": None}
         emit(row)
@@ -631,12 +700,11 @@ def phase_small_f64(payload, cfg, dev, config="perf"):
 
 
 def phase_main(payload, cfg, dev):
-    import numpy as np
     import torch
     from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
     from boundplanner_tpu_torch.ops.cuda_proj import line_polytope_projection
     from boundplanner_tpu_torch.ops.linalg import kkt_inverse
-    from boundplanner_tpu_torch.parallel.batch import chunked_rollout, fleet_rollout
+    from boundplanner_tpu_torch.parallel.batch import chunked_rollout
     from boundplanner_tpu_torch.parallel.fleet_cache import to_numpy, to_torch, tree_map
 
     carry, q0, obs = to_torch((payload["carry"], payload["q0"], payload["obs"]),
@@ -670,16 +738,7 @@ def phase_main(payload, cfg, dev):
     max_viol = float(recs["viol"].amax())
     mean_phi = float(recs["phi"][:, -1].mean())
 
-    one = tree_map(lambda t: t[:1], (carry, q0, obs))
-    fleet_rollout(*one, model, 1)
-    torch.cuda.synchronize()
-    lats = []
-    for _ in range(LATENCY_REPS):
-        t1 = time.perf_counter()
-        _, r1 = fleet_rollout(*one, model, 1)
-        float(r1["phi"][0, -1])
-        lats.append(1e3 * (time.perf_counter() - t1))
-    lats = np.asarray(lats)
+    lat = batch1_latency(tree_map(lambda t: t[:1], (carry, q0, obs)), model)
     result = {
         "phase": "main_path",
         "metric": "boundmpc_solves_per_s_per_chip",
@@ -690,10 +749,7 @@ def phase_main(payload, cfg, dev):
         "success_rate": success_rate,
         "max_viol": max_viol,
         "mean_phi_final": mean_phi,
-        "tick_latency_ms_p50": float(np.percentile(lats, 50)),
-        "tick_latency_ms_p95": float(np.percentile(lats, 95)),
-        "tick_latency_ms_p99": float(np.percentile(lats, 99)),
-        "tick_latency_ms_max": float(np.max(lats)),
+        **{f"tick_latency_ms_{k}": v for k, v in lat.items()},
         "latency_reps": LATENCY_REPS,
         "wall_s": wall,
         "launches": launches,
@@ -723,7 +779,6 @@ def phase_main_routes(payload, cfg, dev):
 
     carry, q0, obs = to_torch((payload["carry"], payload["q0"], payload["obs"]),
                               dev, torch.float32)
-    model = FleetMPC(cfg, device=dev, dtype=torch.float32)
     # route name -> (kernel A's route, kernel B's route)
     routes = {"kernel_a_f32": (kkt_inverse, line_polytope_projection),
               "plain_f32": (kkt_inverse_plain, line_polytope_projection),
@@ -734,6 +789,8 @@ def phase_main_routes(payload, cfg, dev):
     try:
         for name, (route_a, route_b) in routes.items():
             qp.kkt_inverse, cuda_proj.line_polytope_projection = route_a, route_b
+            # a model of its own: its graph captures this route
+            model = FleetMPC(cfg, device=dev, dtype=torch.float32)
             t0 = time.perf_counter()
             _, recs = chunked_rollout(carry, q0, obs, model, N_TICKS, chunk=CHUNK)
             torch.cuda.synchronize()
@@ -744,6 +801,257 @@ def phase_main_routes(payload, cfg, dev):
     finally:
         qp.kkt_inverse, cuda_proj.line_polytope_projection = (kkt_inverse,
                                                               line_polytope_projection)
+    emit(row)
+    return row
+
+
+def first_tick_inputs(carry, q0, obs, model):
+    """(carry, meas, obs) of a fleet's first tick, the plant at rest."""
+    import torch
+    from boundplanner_tpu_torch.parallel.batch import _plant_measurement
+
+    zeros = torch.zeros_like(q0)
+    return carry, _plant_measurement(q0, zeros, zeros, zeros, q0, model.st.chain), obs
+
+
+def phase_sync_free(payload, dev):
+    """The first eager tick of each SYNC_CONFIGS configuration (CHUNK
+    scenes, f32) and of ``MPCParams()`` (scene 0, f64) under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing inside the tick
+    waits for the card, so the tick can be captured."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from boundplanner_tpu_torch.config import MPCParams, perf_mpc_params
+    from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
+    from boundplanner_tpu_torch.parallel.fleet_cache import to_torch, tree_map
+
+    cases = [(name, dataclasses.replace(perf_mpc_params(), **fields), CHUNK, torch.float32)
+             for name, fields in SYNC_CONFIGS.items()]
+    cases.append(("default_f64_batch1", MPCParams(), 1, torch.float64))
+    finite = {}
+    for name, cfg, scenes, dtype in cases:
+        carry, q0, obs = to_torch(tree_map(lambda a: np.asarray(a)[:scenes],
+                                           (payload["carry"], payload["q0"], payload["obs"])),
+                                  dev, dtype)
+        model = FleetMPC(cfg, device=dev, dtype=dtype, graph=False)
+        inputs = first_tick_inputs(carry, q0, obs, model)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _, out = model.tick(*inputs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        finite[name] = bool(torch.isfinite(out["q"]).all())
+    row = {"phase": "graph_sync_free", "finite": finite}
+    emit(row)
+    assert all(finite.values()), finite
+    return row
+
+
+def union_us(spans):
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > end:
+            total += hi - max(lo, end)
+            end = hi
+    return total
+
+
+def profile_ticks(model, inputs, ticks):
+    """``ticks`` calls of ``model.tick`` on ``inputs`` (replays, once the
+    model has captured them) under ``torch.profiler``: the device events,
+    each kernel's launches by its device name, device time per tick, and
+    the card's busy share (the union of device events over the span of all
+    events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model.tick(*inputs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            model.tick(*inputs)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = union_us([(e.time_range.start, e.time_range.end) for e in device])
+    lo = min(e.time_range.start for e in events)
+    hi = max(e.time_range.end for e in events)
+    return {"ticks": ticks, "device_events": len(device),
+            "device_ms_per_tick": 1e-3 * busy / ticks, "window_ms": 1e-3 * (hi - lo),
+            "busy_share": busy / (hi - lo),
+            "kernel_launches": {k: sum(name in e.name for e in device)
+                                for k, name in KERNEL_DEVICE_NAMES.items()}}
+
+
+def tree_equal(a, b):
+    from boundplanner_tpu_torch.mpc.graph import leaves
+    import numpy as np
+
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(np.array_equal(x, y) for x, y in zip(la, lb))
+
+
+def locate_difference(carry, q0, obs, cfg, dev):
+    """The eager route and the graph route stepped side by side from the
+    fleet's start (every graph tick a replay): at the first tick whose
+    outputs or carry differ, the first op that differs on that tick's
+    inputs (`mpc.graph.first_difference`)."""
+    import torch
+    from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC, mpc_tick
+    from boundplanner_tpu_torch.mpc.graph import first_difference
+    from boundplanner_tpu_torch.parallel.batch import _plant_measurement
+    from boundplanner_tpu_torch.utils.integration import integrate_jerk_step
+    from boundplanner_tpu_torch.utils.tree import to_numpy
+
+    eager = FleetMPC(cfg, device=dev, dtype=torch.float32, graph=False)
+    graph = FleetMPC(cfg, device=dev, dtype=torch.float32)
+    graph.tick(*first_tick_inputs(carry, q0, obs, graph))   # the capture
+    zeros = torch.zeros_like(q0)
+    q, dq, ddq, jerk, qf = q0, zeros, zeros, zeros, q0
+    for tick in range(N_TICKS):
+        meas = _plant_measurement(q, dq, ddq, jerk, qf, eager.st.chain)
+        res_e = eager.tick(carry, meas, obs)
+        res_g = graph.tick(carry, meas, obs)
+        if not tree_equal(to_numpy(res_e), to_numpy(res_g)):
+            op = first_difference(lambda c, m, o: mpc_tick(c, m, o, cfg, eager.st),
+                                  (carry, meas, obs))
+            return {"tick": tick, "first_differing_op": op}
+        carry, out = res_e
+        q_n, dq, ddq = integrate_jerk_step(q, dq, ddq, out["dddq"][:, 0], out["dddq"][:, 1],
+                                           cfg.dt)
+        q, jerk, qf = q_n, out["dddq"][:, 1], out["q"][:, -1]
+    return {"tick": None, "first_differing_op": None}
+
+
+def graph_stats(models):
+    """Each captured graph of ``models`` ({label: FleetMPC}): batch, dtype,
+    launches, capture seconds, pool bytes, replays."""
+    return [{"model": label, **runner.stats()}
+            for label, model in models.items() for runner in model.graphs.values()]
+
+
+def batch1_latency(one, model):
+    """Milliseconds of one tick of ``fleet_rollout`` at batch 1 (host clock
+    to the result on the host), LATENCY_REPS times after a warm-up."""
+    import numpy as np
+    from boundplanner_tpu_torch.parallel.batch import fleet_rollout
+
+    fleet_rollout(*one, model, 1)
+    lats = []
+    for _ in range(LATENCY_REPS):
+        t1 = time.perf_counter()
+        _, r1 = fleet_rollout(*one, model, 1)
+        float(r1["phi"][0, -1])
+        lats.append(1e3 * (time.perf_counter() - t1))
+    return {**{f"p{q}": float(np.percentile(lats, q)) for q in (50, 95, 99)},
+            "max": float(np.max(lats))}
+
+
+def phase_graph(payload, cfg, dev):
+    """The graph route against the eager route (``graph=False``) on the
+    main path: both warmed up (the graph's capture), then 128 x 20 through
+    ``chunked_rollout`` in turns (GRAPH_AB): solves/s, launches (240 / 20
+    each, asserted), records and final carries equal bit for bit (else the
+    first differing tick and op, and the phase fails); each route's
+    profile over GRAPH_PROFILE_TICKS ticks (kernel A's and B's device
+    names 12 and 1 times a tick, asserted; busy share, device time); the
+    batch-1 tick latency in f32 and f64 of each route; every capture's
+    seconds and pool bytes."""
+    import numpy as np
+    import torch
+    from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
+    from boundplanner_tpu_torch.parallel.batch import chunked_rollout
+    from boundplanner_tpu_torch.parallel.fleet_cache import to_numpy, to_torch, tree_map
+
+    carry, q0, obs = to_torch((payload["carry"], payload["q0"], payload["obs"]),
+                              dev, torch.float32)
+    batch = q0.shape[0]
+    models = {route: FleetMPC(cfg, device=dev, dtype=torch.float32,
+                              graph=None if route == "graph" else False)
+              for route in ("eager", "graph")}
+    for model in models.values():
+        chunked_rollout(carry, q0, obs, model, N_TICKS, chunk=CHUNK)
+    runs = []
+    for route in GRAPH_AB:
+        res, secs, launches = counted(
+            lambda: chunked_rollout(carry, q0, obs, models[route], N_TICKS, chunk=CHUNK))
+        runs.append({"route": route, "wall_s": secs, "solves_per_s": batch * N_TICKS / secs,
+                     "launches": launches, "out": to_numpy(res)})
+    equal = all(tree_equal(r["out"], runs[0]["out"]) for r in runs[1:])
+    want = {"chol_inverse": cfg.sqp_iters * cfg.qp_iters * N_TICKS * (batch // CHUNK),
+            "line_polytope": N_TICKS * (batch // CHUNK)}
+    recs = runs[1]["out"][1]
+    quality = {"success_rate": float(recs["success"].mean()),
+               "max_viol": float(recs["viol"].max()),
+               "mean_phi_final": float(recs["phi"][:, -1].mean())}
+    diff = None if equal else locate_difference(*tree_map(lambda t: t[:CHUNK], (carry, q0, obs)),
+                                                cfg, dev)
+    chunk_inputs = tree_map(lambda t: t[:CHUNK], (carry, q0, obs))
+    profiles = {route: profile_ticks(model, first_tick_inputs(*chunk_inputs, model),
+                                     GRAPH_PROFILE_TICKS)
+                for route, model in models.items()}
+    latency = {}
+    for dtype in (torch.float32, torch.float64):
+        one = to_torch(tree_map(lambda a: np.asarray(a)[:1],
+                                (payload["carry"], payload["q0"], payload["obs"])), dev, dtype)
+        name = str(dtype).split(".")[-1]
+        for route in ("eager", "graph"):
+            model = FleetMPC(cfg, device=dev, dtype=dtype,
+                             graph=None if route == "graph" else False)
+            latency[f"{name}_{route}"] = batch1_latency(one, model)
+            models[f"batch1_{name}_{route}"] = model
+    row = {"phase": "graph", "runs": [{k: v for k, v in r.items() if k != "out"} for r in runs],
+           "equal_bit_for_bit": equal, "difference": diff, "launches_want": want, **quality,
+           "profiles": profiles, "tick_latency_ms": latency, "graphs": graph_stats(models)}
+    emit(row)
+    assert all(r["launches"] == want for r in runs), [r["launches"] for r in runs]
+    assert equal, f"graph route differs from the eager route: {diff}"
+    per_tick = {"chol_inverse": cfg.sqp_iters * cfg.qp_iters, "line_polytope": 1}
+    for route, prof in profiles.items():
+        got = prof["kernel_launches"]
+        assert got == {k: GRAPH_PROFILE_TICKS * n for k, n in per_tick.items()}, (route, got)
+    return row
+
+
+def phase_runtime_routes(dev, plan):
+    """The single arm with each route: ``MPCNode`` on the e2e plan for
+    GRAPH_NODE_TICKS ticks, f32 ``perf_mpc_params()`` and f64
+    ``MPCParams()``, eager (``graph=False``) and graph: ``t_comp`` and
+    ``t_loop`` p50/p95 over the ticks after the first (the graph's first
+    tick runs the warm-up and the capture: its ``t_comp`` is reported
+    apart), and the launches per step (asserted)."""
+    import numpy as np
+    import torch
+    from boundplanner_tpu_torch.config import MPCParams, perf_mpc_params
+    from boundplanner_tpu_torch.mpc import MPCNode
+
+    q0, args, _, _, _ = plan
+    rows = {}
+    for name, cfg, dtype, want in (
+            ("float32", perf_mpc_params(), torch.float32,
+             (perf_mpc_params().sqp_iters * perf_mpc_params().qp_iters, 1)),
+            ("float64", MPCParams(), torch.float64,
+             (MPCParams().sqp_iters * MPCParams().qp_iters + PROJ_IPM_ITERS, 0))):
+        for route in ("eager", "graph"):
+            node = MPCNode(q0, params=cfg, device=dev, dtype=dtype,
+                           graph=None if route == "graph" else False)
+            node.update_reference(*args)
+            for _ in range(GRAPH_NODE_TICKS[name]):
+                got = step_counted(node)
+                assert got == want, (name, route, got, want)
+            tel = node.telemetry.arrays()
+            pct = lambda key, q: 1e3 * float(np.percentile(tel[key][1:], q))
+            rows[f"{name}_{route}"] = {
+                "ticks": GRAPH_NODE_TICKS[name], "first_t_comp_ms": 1e3 * float(tel["t_comp"][0]),
+                **{f"{key}_ms_p{q}": pct(key, q) for key in ("t_comp", "t_loop") for q in (50, 95)},
+                "meets_period_p50": pct("t_comp", 50) < 1e3 * node.dt,
+                "phi": float(node.mpc.phi_current[0]),
+                "graphs": graph_stats({route: node.mpc.model})}
+    row = {"phase": "runtime_routes", "period_ms": 1e3 * perf_mpc_params().dt, **rows}
     emit(row)
     return row
 
@@ -1427,6 +1735,7 @@ def run_runtime(dev):
     rt64 = phase_runtime_f64(dev, np.random.default_rng(5), plan)
     rt32, node32 = phase_runtime_f32(dev, plan)
     parts = phase_runtime_parts(dev, plan, node32)
+    rt32["routes"] = phase_runtime_routes(dev, plan)
     return rt64, rt32, parts, plan
 
 
@@ -1940,6 +2249,7 @@ def main(argv):
     only_runtime = "--only-runtime" in argv
     only_solver_configs = "--only-solver-configs" in argv
     only_gates = "--only-gates" in argv
+    only_graph = "--only-graph" in argv
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "boundplanner_tpu_torch")):
         print("chip_smoke: boundplanner_tpu_torch not found beside this script",
@@ -1976,6 +2286,20 @@ def main(argv):
 
     if only_runtime:
         run_runtime(dev)
+        return 0
+    if only_graph:
+        from boundplanner_tpu_torch.mpc.e2e import plan_e2e
+
+        cfg = perf_mpc_params()
+        payload = load(FLEET)
+        rows = {"sync_free": phase_sync_free(payload, dev),
+                "graph": phase_graph(payload, cfg, dev)}
+        plan = plan_e2e(dev)
+        rows["runtime_routes"] = phase_runtime_routes(dev, plan)
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, "graph.json"), "w") as f:
+                json.dump({"card": card, **rows}, f, indent=1)
         return 0
     if only_gates:
         from boundplanner_tpu_torch.mpc.e2e import plan_e2e
@@ -2026,6 +2350,8 @@ def main(argv):
     b = b_all[0]
     phase_small_f64(payload, cfg, dev)
     main_res, main_recs = phase_main(payload, cfg, dev)
+    sync_free = phase_sync_free(payload, dev)
+    graph_row = phase_graph(payload, cfg, dev)
     phase_worst_tick(payload, cfg, dev, out_dir)
     routes = phase_main_routes(payload, cfg, dev)
     solver = phase_solver_configs(payload, dev, main_res)
@@ -2043,8 +2369,8 @@ def main(argv):
     sync = phase_sync_fleet(cfg, dev, plan, threaded)
     examples = phase_examples(dev)
 
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "roofline_share",
-            "library_ms")
+    keys = ("max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+            "roofline_share", "library_ms")
     summary = lambda row: {k: row[k] for k in keys}
     kernels = {"kernels": [
         {"name": "chol_inverse", "route": "cuda",
@@ -2095,7 +2421,8 @@ def main(argv):
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-            json.dump({"card": card, "main": main_res, "main_routes": routes,
+            json.dump({"card": card, "main": main_res, "sync_free": sync_free,
+                       "graph": graph_row, "main_routes": routes,
                        "solver_configs": solver, "plan_fleet": plan,
                        "device_search": spath, "fleet_mp": mp_row, "planned_rollout": rollout,
                        "multi_gpu": multi, "runtime_f64": rt64, "runtime_f32": rt32,

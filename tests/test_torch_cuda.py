@@ -1,5 +1,6 @@
 """The two hand-written CUDA kernels against their plain PyTorch versions,
-on the card. Every test here needs a CUDA device and skips without one.
+and the tick's CUDA graph against its eager route, on the card. Every
+test here needs a CUDA device and skips without one.
 
 The port runs without JAX, and so does this file; it also holds the
 seeded input generators that ``test_torch_kernels.py`` shares. On the
@@ -392,3 +393,63 @@ def test_cuda_checkpoint_resume(cuda_device, tmp_path):
     out_a, out_b = node.mpc.step(*meas), twin.step(*meas)
     for key in out_a[0]:
         np.testing.assert_array_equal(out_b[0][key], out_a[0][key])
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replay_equals_eager(cuda_device):
+    """The tick's CUDA graph against the eager route on the card: 2 scenes
+    of `.fleet_cache/test8.pkl` for 3 ticks of the perf configuration in
+    f32, bit for bit. A 1-tick rollout captures the graph first, so all
+    3 ticks replay it; the bookkeeping counts 12 / 1 launches a tick."""
+    from boundplanner_tpu_torch.config import perf_mpc_params
+    from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
+    from boundplanner_tpu_torch.parallel.batch import fleet_rollout
+    from boundplanner_tpu_torch.parallel.fleet_cache import load, to_numpy, to_torch, tree_map
+
+    payload = load(os.path.join(os.path.dirname(__file__), "..", ".fleet_cache", "test8.pkl"))
+    inputs = to_torch(tree_map(lambda a: np.asarray(a)[:2],
+                               (payload["carry"], payload["q0"], payload["obs"])),
+                      cuda_device, torch.float32)
+    eager = FleetMPC(perf_mpc_params(), device=cuda_device, graph=False)
+    graph = FleetMPC(perf_mpc_params(), device=cuda_device)
+    assert graph.graph is True
+    ref = to_numpy(fleet_rollout(*inputs, eager, 3))
+    fleet_rollout(*inputs, graph, 1)
+    (runner,) = graph.graphs.values()
+    kkt_inverse.launches = 0
+    cuda_proj.line_polytope_projection.launches = 0
+    got = to_numpy(fleet_rollout(*inputs, graph, 3))
+    assert runner.replays == 3 and runner.launches == [12, 1]
+    assert (kkt_inverse.launches, cuda_proj.line_polytope_projection.launches) == (36, 3)
+    out_got, out_ref = [], []
+    tree_map(out_got.append, got)
+    tree_map(out_ref.append, ref)
+    for g, r in zip(out_got, out_ref):
+        np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.cuda
+def test_cuda_graph_first_difference_finds_none(cuda_device):
+    """The diagnostic that names the first op where a replay parts from the
+    eager route (`mpc.graph.first_difference`, run by `chip_smoke.py` when
+    the routes differ) runs on the card and finds no difference on one
+    tick of 2 scenes."""
+    from boundplanner_tpu_torch.config import perf_mpc_params
+    from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC, mpc_tick
+    from boundplanner_tpu_torch.mpc.graph import first_difference
+    from boundplanner_tpu_torch.parallel.batch import _plant_measurement
+    from boundplanner_tpu_torch.parallel.fleet_cache import load, to_torch, tree_map
+
+    payload = load(os.path.join(os.path.dirname(__file__), "..", ".fleet_cache", "test8.pkl"))
+    carry, q0, obs = to_torch(tree_map(lambda a: np.asarray(a)[:2],
+                                       (payload["carry"], payload["q0"], payload["obs"])),
+                              cuda_device, torch.float32)
+    model = FleetMPC(perf_mpc_params(), device=cuda_device, graph=False)
+    zeros = torch.zeros_like(q0)
+    meas = _plant_measurement(q0, zeros, zeros, zeros, q0, model.st.chain)
+    before = (kkt_inverse.launches, cuda_proj.line_polytope_projection.launches)
+    assert first_difference(lambda c, m, o: mpc_tick(c, m, o, model.cfg, model.st),
+                            (carry, meas, obs)) is None
+    # the eager run launched once more, the capture not at all
+    assert (kkt_inverse.launches, cuda_proj.line_polytope_projection.launches) == (
+        before[0] + 12, before[1] + 1)
