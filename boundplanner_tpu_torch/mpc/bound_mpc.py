@@ -40,7 +40,7 @@ from ..planner.set_finder import ObstacleArrays, build_obstacle_arrays
 from ..robot import kinematics as kin
 from ..robot.model import U_MAX
 from ..utils import so3
-from ..utils.device import DEFAULT_DEVICE, checked_device
+from ..utils.device import DEFAULT_DEVICE, checked_device, graph_route
 from ..utils.tree import to_numpy, to_torch, tree_map
 from . import graph as graph_mod
 from . import ocp, ocp_struct, prep
@@ -463,10 +463,10 @@ class FleetMPC(nn.Module):
 
     ``graph`` chooses the route on the card: ``None`` (the default)
     replays one CUDA graph per tick function, configuration and input
-    signature (`mpc.graph.TickGraph`, the JAX package's ``jax.jit``) on
+    signature (`mpc.graph.Graph`, the JAX package's ``jax.jit``) on
     CUDA tensors and runs eagerly on the CPU; ``False`` runs eagerly on
     the card too; ``True`` on the CPU raises. ``graphs`` maps each key to
-    its `TickGraph`. On a CPU model, setting ``graph = True`` afterwards
+    its `Graph`. On a CPU model, setting ``graph = True`` afterwards
     runs each signature's graph body eagerly (what the tests hold to the
     eager route)."""
 
@@ -475,10 +475,8 @@ class FleetMPC(nn.Module):
         super().__init__()
         check_supported(cfg)
         device = checked_device(device)
-        if graph and device.type != "cuda":
-            raise ValueError(f"graph=True needs a CUDA device, not {device}")
         self.cfg = cfg
-        self.graph = device.type == "cuda" if graph is None else graph
+        self.graph = graph_route(graph, device)
         self.graphs = {}
         self.st = ocp_struct.build(cfg.n, cfg.dt, cfg.robot,
                                    cfg.struct_ocp and cfg.struct_chunked,
@@ -500,7 +498,7 @@ class FleetMPC(nn.Module):
         runner = self.graphs.get(key)
         if runner is None:
             st = self.st
-            runner = self.graphs[key] = graph_mod.TickGraph(
+            runner = self.graphs[key] = graph_mod.Graph(
                 lambda c, m, o: fn(c, m, o, cfg, st), inputs)
         return runner(*inputs)
 

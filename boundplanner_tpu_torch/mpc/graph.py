@@ -1,36 +1,49 @@
-"""CUDA-graph replay of the fused tick: the port's counterpart of the JAX
-package's ``jax.jit`` of ``mpc_tick``.
+"""CUDA-graph replay of a device function: the port's counterpart of the
+JAX package's ``jax.jit`` (of ``mpc_tick``, and of the planner's device
+functions).
 
-A `TickGraph` holds one input signature of a tick function (the shapes,
-dtypes and device of every input leaf; `FleetMPC` keys its graphs also by
-the function and the configuration, as ``jax.jit`` keys its traces by the
-static arguments): static input buffers, one captured
-``torch.cuda.CUDAGraph`` and its static outputs.
+A `Graph` holds one input signature of a function of trees of tensors
+(the shapes, dtypes and device of every input leaf; its owner keys its
+graphs also by the function and its static arguments, as ``jax.jit``
+keys its traces): static input buffers, one captured
+``torch.cuda.CUDAGraph`` and its static outputs. `FleetMPC` keeps one per
+tick function, configuration and signature; the planner one per kernel
+key, static arguments and signature, shared by the whole process
+(`planner.planner.device_call`).
 
-- The first call warms up on a side stream: one eager run of the tick on
-  the static inputs, which builds the kernels, sets kernel A's
-  shared-memory attribute and sets up that stream's cuBLAS workspace. Its
-  result is the call's result. Then the function is captured on the same
-  stream into a private memory pool.
-- Every later call copies the caller's carry, measurements and obstacles
-  into the static inputs, replays the graph, and returns clones of the
-  static outputs: the caller keeps value semantics (the escalation retry
-  reuses the pre-tick carry).
+- The first call warms up on a side stream: one eager run of the
+  function on the static inputs, which builds the kernels, sets kernel
+  A's shared-memory attribute and sets up that stream's cuBLAS
+  workspace. Its result is the call's result. Then the function is
+  captured on the same stream into a private memory pool.
+- Every later call copies the caller's inputs into the static inputs,
+  replays the graph, and returns clones of the static outputs: the caller
+  keeps value semantics (the escalation retry reuses the pre-tick carry).
 - A capture or replay that fails raises; nothing falls back to the eager
   route.
+
+Threads: a lock per graph is held across copy-in, replay and clone-out
+(two broker leaders of one key and width share the static buffers), and
+one capture lock per card across warm-up and capture (one capture uses
+the side stream at a time). Lock order: a graph's lock, then the capture
+lock, then `ops.sqp._TRANSFORMS` (taken inside the via-rotation SQP's
+body); never the other way round. No lock of this module is held across
+anything but the call itself, so none is held across a broker's wait.
 
 The kernel wrappers count their launches in Python, which a replay does
 not run. A capture launches nothing: it records how many launches of each
 counted wrapper (`WRAPPERS`) the graph holds and takes them back off the
-counters; each replay adds them again.
+counters; each replay adds them again, under the capture lock, so that no
+replay's count lands inside another thread's capture.
 
-On the CPU there is nothing to capture: a `TickGraph` of CPU tensors runs
+On the CPU there is nothing to capture: a `Graph` of CPU tensors runs
 its body eagerly (copy-in, the function on the static inputs, clone-out),
 the CPU tests' view of what the card replays.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 import torch
@@ -60,22 +73,31 @@ def signature(tree) -> tuple:
 
 
 _SIDE_STREAMS: dict = {}
+_CAPTURE_LOCKS: dict = {}
+_SETUP = threading.Lock()
 
 
 def side_stream(device: torch.device) -> torch.cuda.Stream:
     """One warm-up and capture stream per card, so that a capture finds the
     cuBLAS workspace that its warm-up set up."""
-    stream = _SIDE_STREAMS.get(device.index)
-    if stream is None:
-        stream = _SIDE_STREAMS[device.index] = torch.cuda.Stream(device)
-    return stream
+    with _SETUP:
+        stream = _SIDE_STREAMS.get(device.index)
+        if stream is None:
+            stream = _SIDE_STREAMS[device.index] = torch.cuda.Stream(device)
+        return stream
+
+
+def capture_lock(device: torch.device) -> threading.RLock:
+    """The card's capture lock (see the module's lock order)."""
+    with _SETUP:
+        return _CAPTURE_LOCKS.setdefault(device.index, threading.RLock())
 
 
 def _reserved(device) -> int:
     return torch.cuda.memory_stats(device).get("reserved_bytes.all.current", 0)
 
 
-class TickGraph:
+class Graph:
     """One signature of ``fn(*inputs) -> outputs`` (trees of tensors),
     replayed from a CUDA graph on the card. ``launches`` (per `COUNTED`
     kernel), ``capture_s`` and ``pool_bytes`` (the card memory the capture
@@ -86,6 +108,7 @@ class TickGraph:
         self.fn = fn
         self.static_in = tree_map(torch.empty_like, inputs)
         self.device = leaves(self.static_in)[0].device
+        self.lock = threading.Lock()
         self.graph = None
         self.static_out = None
         self.launches = None
@@ -103,50 +126,53 @@ class TickGraph:
         return tree_map(torch.clone, self.fn(*self.static_in))
 
     def __call__(self, *inputs):
-        if self.device.type != "cuda":
-            return self.body(inputs)
-        with torch.cuda.device(self.device):
-            if self.graph is None:
-                return self._warm_up_and_capture(inputs)
-            self._copy_in(inputs)
-            self.graph.replay()
-            for wrapper, n in zip(WRAPPERS, self.launches):
-                wrapper.launches += n
-            self.replays += 1
-            return tree_map(torch.clone, self.static_out)
+        with self.lock:
+            if self.device.type != "cuda":
+                return self.body(inputs)
+            with torch.cuda.device(self.device):
+                if self.graph is None:
+                    return self._warm_up_and_capture(inputs)
+                self._copy_in(inputs)
+                self.graph.replay()
+                with capture_lock(self.device):
+                    for wrapper, n in zip(WRAPPERS, self.launches):
+                        wrapper.launches += n
+                self.replays += 1
+                return tree_map(torch.clone, self.static_out)
 
     def _warm_up_and_capture(self, inputs):
-        current = torch.cuda.current_stream(self.device)
-        side = side_stream(self.device)
-        self._copy_in(inputs)
-        side.wait_stream(current)
-        try:
-            with torch.cuda.stream(side):
-                first = self.fn(*self.static_in)
-        finally:
-            current.wait_stream(side)
-        result = tree_map(torch.clone, first)
-        del first
+        with capture_lock(self.device):
+            current = torch.cuda.current_stream(self.device)
+            side = side_stream(self.device)
+            self._copy_in(inputs)
+            side.wait_stream(current)
+            try:
+                with torch.cuda.stream(side):
+                    first = self.fn(*self.static_in)
+            finally:
+                current.wait_stream(side)
+            result = tree_map(torch.clone, first)
+            del first
 
-        before = [w.launches for w in WRAPPERS]
-        torch.cuda.synchronize(self.device)
-        # the capture empties the allocator's cache first; so does this,
-        # for the reserved bytes to grow by the private pool alone
-        torch.cuda.empty_cache()
-        reserved, t0 = _reserved(self.device), time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-                static_out = self.fn(*self.static_in)
-        finally:
-            self.launches = [w.launches - b for w, b in zip(WRAPPERS, before)]
-            for w, b in zip(WRAPPERS, before):
-                w.launches = b
-        torch.cuda.synchronize(self.device)
-        self.capture_s = time.perf_counter() - t0
-        self.pool_bytes = _reserved(self.device) - reserved
-        self.graph, self.static_out = graph, static_out
-        return result
+            before = [w.launches for w in WRAPPERS]
+            torch.cuda.synchronize(self.device)
+            # the capture empties the allocator's cache first; so does this,
+            # for the reserved bytes to grow by the private pool alone
+            torch.cuda.empty_cache()
+            reserved, t0 = _reserved(self.device), time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                    static_out = self.fn(*self.static_in)
+            finally:
+                self.launches = [w.launches - b for w, b in zip(WRAPPERS, before)]
+                for w, b in zip(WRAPPERS, before):
+                    w.launches = b
+            torch.cuda.synchronize(self.device)
+            self.capture_s = time.perf_counter() - t0
+            self.pool_bytes = _reserved(self.device) - reserved
+            self.graph, self.static_out = graph, static_out
+            return result
 
     def stats(self) -> dict:
         first = leaves(self.static_in)[0]

@@ -28,11 +28,21 @@ import torch
 
 from .qp import solve_feasibility
 
-_TRI_ROWS = [0, 1, 1, 2, 2, 2]
-_TRI_COLS = [0, 0, 1, 0, 1, 2]
-_DIAG_IDX = [0, 2, 5]
-# pairs of lower-triangular entries in the same column of L
-_SAME_COL = [[float(ci == cj) for cj in _TRI_COLS] for ci in _TRI_COLS]
+
+class _Tri(NamedTuple):
+    """Index tensors of L's 6 lower-triangular entries (row-major), built on
+    the device from no host data, so that a CUDA graph can hold them."""
+    rows: torch.Tensor   # [0, 1, 1, 2, 2, 2]
+    cols: torch.Tensor   # [0, 0, 1, 0, 1, 2]
+    diag: torch.Tensor   # [0, 2, 5]: the diagonal entries
+    same: torch.Tensor   # (6, 6) 1 where two entries share a column of L
+
+
+def _tri(device, dtype) -> _Tri:
+    rows, cols = torch.tril_indices(3, 3, device=device)
+    i = torch.arange(3, device=device)
+    same = (cols[:, None] == cols[None, :]).to(dtype)
+    return _Tri(rows, cols, i * (i + 3) // 2, same)
 
 
 class MVIEResult(NamedTuple):
@@ -42,16 +52,21 @@ class MVIEResult(NamedTuple):
     ok: torch.Tensor       # (B,) bool: seed feasible, finite, positive diagonal
 
 
-def _tri_to_mat(tri):
+def _tri_to_mat(tri, ix: _Tri):
     """(..., 6) lower-triangular entries -> (..., 3, 3)."""
     out = tri.new_zeros(tri.shape[:-1] + (3, 3))
-    out[..., _TRI_ROWS, _TRI_COLS] = tri
+    out[..., ix.rows, ix.cols] = tri
     return out
+
+
+def _floor_value(dtype) -> float:
+    """The literal 1e-300 in ``dtype``: 0 in float32 (it flushes)."""
+    return 1e-300 if torch.finfo(dtype).tiny < 1e-300 else 0.0
 
 
 def _floor(x):
     """max(x, 1e-300) in x's dtype (the literal is 0 in float32)."""
-    return torch.clamp(x, min=torch.tensor(1e-300, dtype=x.dtype).item())
+    return torch.clamp(x, min=_floor_value(x.dtype))
 
 
 def _log_floor_derivs(y):
@@ -60,7 +75,7 @@ def _log_floor_derivs(y):
     below the floor the second derivative is 0 / floor^2 = 0 / 0 = NaN, as
     in ``jax.hessian``: a Newton step from an infeasible iterate is NaN and
     the backtracking keeps the iterate."""
-    c = torch.tensor(1e-300, dtype=y.dtype).item()
+    c = _floor_value(y.dtype)
     yc = torch.clamp(y, min=c)
     s = (y > c).to(y.dtype) + 0.5 * (y == c).to(y.dtype)
     return s / yc, -(s * s) / (yc * yc)
@@ -109,14 +124,13 @@ def _norm_derivs(u, m_cols, mtm):
     return n, grad, hess
 
 
-def _tri_margin_derivs(tri, a_mat):
+def _tri_margin_derivs(tri, a_mat, ix: _Tri):
     """Derivatives of ||L^T a_i|| in the 6 entries of L: (B, m, 6) and
     (B, m, 6, 6)."""
-    u = a_mat @ _tri_to_mat(tri)                       # rows a_i^T L
-    a_rows = a_mat[..., _TRI_ROWS]                     # (B, m, 6)
-    m_cols = u[..., _TRI_COLS] * a_rows
-    same = torch.tensor(_SAME_COL, dtype=tri.dtype, device=tri.device)
-    mtm = a_rows[..., :, None] * a_rows[..., None, :] * same
+    u = a_mat @ _tri_to_mat(tri, ix)                   # rows a_i^T L
+    a_rows = a_mat[..., ix.rows]                       # (B, m, 6)
+    m_cols = u[..., ix.cols] * a_rows
+    mtm = a_rows[..., :, None] * a_rows[..., None, :] * ix.same
     _, grad, hess = _norm_derivs(u, m_cols, mtm)
     return grad, hess
 
@@ -185,29 +199,30 @@ def mvie(a_mat, b_vec, d0=None, stages: int = 7, newton_steps: int = 6) -> MVIER
         zero = a_mat.new_zeros(d0.shape[:1] + (1, 3, 3))
         margin0 = torch.amin(_margins(zero, d0[:, None], a_mat, b_vec)[:, 0], dim=-1)
     eps0, seed_ok = _eps0(a_mat, margin0)
+    ix = _tri(d0.device, dtype)
     tri0 = torch.zeros(d0.shape[:1] + (6,), dtype=dtype, device=d0.device)
-    tri0[:, _DIAG_IDX] = eps0[:, None]
+    tri0[:, ix.diag] = eps0[:, None]
     theta0 = torch.cat([tri0, d0], dim=-1)
 
     def objective(theta, mu):
-        m = _margins(_tri_to_mat(theta[..., :6]), theta[..., 6:], a_mat, b_vec)
-        diag = theta[..., _DIAG_IDX]
+        m = _margins(_tri_to_mat(theta[..., :6], ix), theta[..., 6:], a_mat, b_vec)
+        diag = theta[..., ix.diag]
         return (-torch.sum(torch.log(_floor(diag)), dim=-1)
                 - mu * torch.sum(torch.log(_floor(m)), dim=-1))
 
     def grad_hess(theta, mu):
         tri, d = theta[:, :6], theta[:, 6:]
-        marg = _margins(_tri_to_mat(tri)[:, None], d[:, None], a_mat, b_vec)[:, 0]
-        g_n, h_n = _tri_margin_derivs(tri, a_mat)
+        marg = _margins(_tri_to_mat(tri, ix)[:, None], d[:, None], a_mat, b_vec)[:, 0]
+        g_n, h_n = _tri_margin_derivs(tri, a_mat, ix)
         dm = torch.cat([-g_n, -a_mat], dim=-1)
         d2m = torch.zeros(dm.shape + (9,), dtype=dtype, device=dm.device)
         d2m[..., :6, :6] = -h_n
-        return _barrier_grad_hess(theta, mu, _DIAG_IDX, marg, dm, d2m)
+        return _barrier_grad_hess(theta, mu, ix.diag, marg, dm, d2m)
 
     theta = _solve_barrier(theta0, objective, grad_hess, stages, newton_steps)
-    l_mat = _tri_to_mat(theta[:, :6])
+    l_mat = _tri_to_mat(theta[:, :6], ix)
     return MVIEResult(shape=l_mat @ l_mat.mT, center=theta[:, 6:], gen=l_mat,
-                      ok=seed_ok & _diag_positive(theta, _DIAG_IDX))
+                      ok=seed_ok & _diag_positive(theta, ix.diag))
 
 
 def mvie_fixed_mid(a_mat, b_vec, d_fixed, stages: int = 7, newton_steps: int = 6) -> MVIEResult:
@@ -215,25 +230,26 @@ def mvie_fixed_mid(a_mat, b_vec, d_fixed, stages: int = 7, newton_steps: int = 6
     dtype = b_vec.dtype
     margin0 = torch.amin(b_vec - (a_mat @ d_fixed[..., None])[..., 0], dim=-1)
     eps0, seed_ok = _eps0(a_mat, margin0)
+    ix = _tri(d_fixed.device, dtype)
     theta0 = torch.zeros(d_fixed.shape[:1] + (6,), dtype=dtype, device=d_fixed.device)
-    theta0[:, _DIAG_IDX] = eps0[:, None]
+    theta0[:, ix.diag] = eps0[:, None]
     d_c = d_fixed[:, None]
 
     def objective(theta, mu):
-        m = _margins(_tri_to_mat(theta), d_c, a_mat, b_vec)
-        diag = theta[..., _DIAG_IDX]
+        m = _margins(_tri_to_mat(theta, ix), d_c, a_mat, b_vec)
+        diag = theta[..., ix.diag]
         return (-torch.sum(torch.log(_floor(diag)), dim=-1)
                 - mu * torch.sum(torch.log(_floor(m)), dim=-1))
 
     def grad_hess(theta, mu):
-        marg = _margins(_tri_to_mat(theta)[:, None], d_c, a_mat, b_vec)[:, 0]
-        g_n, h_n = _tri_margin_derivs(theta, a_mat)
-        return _barrier_grad_hess(theta, mu, _DIAG_IDX, marg, -g_n, -h_n)
+        marg = _margins(_tri_to_mat(theta, ix)[:, None], d_c, a_mat, b_vec)[:, 0]
+        g_n, h_n = _tri_margin_derivs(theta, a_mat, ix)
+        return _barrier_grad_hess(theta, mu, ix.diag, marg, -g_n, -h_n)
 
     theta = _solve_barrier(theta0, objective, grad_hess, stages, newton_steps)
-    l_mat = _tri_to_mat(theta)
+    l_mat = _tri_to_mat(theta, ix)
     return MVIEResult(shape=l_mat @ l_mat.mT, center=d_fixed, gen=l_mat,
-                      ok=seed_ok & _diag_positive(theta, _DIAG_IDX))
+                      ok=seed_ok & _diag_positive(theta, ix.diag))
 
 
 def mvie_fixed_r(a_mat, b_vec, d_fixed, r_mat, axis0_lb, stages: int = 7,
@@ -242,7 +258,7 @@ def mvie_fixed_r(a_mat, b_vec, d_fixed, r_mat, axis0_lb, stages: int = 7,
     L = R diag(e), with the first semi-axis e_0 >= axis0_lb (B,) held by its
     own barrier term."""
     dtype = b_vec.dtype
-    all_idx = [0, 1, 2]
+    all_idx = torch.arange(3, device=d_fixed.device)
     margin0 = torch.amin(b_vec - (a_mat @ d_fixed[..., None])[..., 0], dim=-1)
     eps0, seed_ok = _eps0(a_mat, margin0)
     e0 = eps0[:, None].expand(-1, 3).clone()

@@ -301,7 +301,7 @@ def solve_feasibility(g_mat, h_vec, x0=None, iters: int = 30, eps: float = 1e-6)
     dtype, dev = h_vec.dtype, h_vec.device
     p_mat = (torch.eye(n + 1, dtype=dtype, device=dev) * eps).expand(bsz, n + 1, n + 1)
     q_vec = torch.zeros((bsz, n + 1), dtype=dtype, device=dev)
-    q_vec[:, n] = 1.0
+    q_vec[:, n].fill_(1.0)          # fill_: an assignment copies from the host
     g_full = torch.cat([g_mat, -torch.ones((bsz, m, 1), dtype=dtype, device=dev)], dim=-1)
     x0_full = None
     if x0 is not None:

@@ -6,10 +6,16 @@ arguments under a kernel key; the first caller of a key becomes the
 leader, lingers briefly so sibling threads can join, then stacks all queued
 arguments, pads the batch to a power of two by repeating row 0, runs ONE
 call of the registered batch-major function on the broker's device and
-dtype, and hands every caller its row of the results as numpy.
+dtype, and hands every caller its row of the results as numpy. On the
+card that call replays the process's graph of (key, width)
+(`planner.planner.device_call`) unless the broker's ``graph`` is False;
+the padding bounds the captures to the keys x {1, 2, 4, ..., max_batch}
+x dtype, as it bounds the JAX package's traces.
 
 No deadlock by construction: a leader never waits for a specific number of
-joiners, and an error in the batched call is re-raised in every caller.
+joiners, an error in the batched call is re-raised in every caller, and
+the graph locks (`mpc.graph`) are held only inside the batched call,
+never across a wait.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ from typing import Any, Callable, Dict, List
 import numpy as np
 import torch
 
-from ..utils.device import DEFAULT_DEVICE, checked_device
+from ..planner.planner import device_call
+from ..utils.device import DEFAULT_DEVICE, checked_device, graph_route
 from ..utils.tree import to_numpy, to_torch, tree_map, tree_stack
 
 
@@ -64,11 +71,12 @@ class BatchBroker:
     call(key, *args): ``args`` are ONE call's numpy arrays (or trees of
     them); blocks until the coalesced batch has run and returns this
     call's row of the results as numpy. ``calls_by_key`` counts the calls
-    served under each key.
+    served under each key. ``graph`` is `planner.BoundPlanner`'s: the
+    batched calls replay graphs on the card unless it is False.
     """
 
     def __init__(self, linger: float = 0.003, max_batch: int = 64,
-                 device=DEFAULT_DEVICE, dtype=torch.float32):
+                 device=DEFAULT_DEVICE, dtype=torch.float32, graph: bool | None = None):
         # short default linger: every leader sleeps the full window, so
         # low-concurrency callers should not pay a coalescing budget; the
         # fleet builder passes linger=0.030
@@ -76,6 +84,7 @@ class BatchBroker:
         self.max_batch = max_batch
         self.device = checked_device(device)
         self.dtype = dtype
+        self.graph = graph_route(graph, self.device)
         self._lock = threading.Lock()
         self._pending: Dict[str, List[_Ticket]] = {}
         self._fns: Dict[str, Callable] = {}
@@ -90,7 +99,8 @@ class BatchBroker:
     def _run(self, key, chunk):
         stacked = tree_stack([t.args for t in chunk])
         padded, _ = _pad_pow2(stacked, len(chunk), self.max_batch)
-        out = to_numpy(self._fns[key](*to_torch(padded, self.device, self.dtype)))
+        out = to_numpy(device_call(key, self._fns[key], to_torch(padded, self.device, self.dtype),
+                                   self.graph))
         for i, t in enumerate(chunk):
             t.result = tree_map(lambda leaf: leaf[i], out)
 

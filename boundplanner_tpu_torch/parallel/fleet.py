@@ -51,13 +51,16 @@ def random_scene(rng: np.random.Generator, n_obstacles: int = 3):
 
 
 def plan_scene(q0, goal, obstacles, seed: int, cfg: MPCParams, dtype=np.float32,
-               broker=None, device=DEFAULT_DEVICE, plan_dtype=torch.float32):
+               broker=None, device=DEFAULT_DEVICE, plan_dtype=torch.float32,
+               graph: bool | None = None):
     """Plan one scene; returns (carry, obstacle arrays) with numpy leaves in
     ``dtype``, or None when the planner finds no path.
 
     ``plan_dtype`` is the precision of the planning (the JAX package plans
     in its global dtype: float32 without x64); ``dtype`` that of the carry
-    and obstacle arrays it builds."""
+    and obstacle arrays it builds. ``graph`` is the planner's
+    (`BoundPlanner`: its device calls replay graphs on the card unless it
+    is False)."""
     device = checked_device(device)
     chain = kin.Chain().to(device, plan_dtype)
     q = torch.as_tensor(np.asarray(q0, np.float64), dtype=plan_dtype, device=device)
@@ -74,6 +77,7 @@ def plan_scene(q0, goal, obstacles, seed: int, cfg: MPCParams, dtype=np.float32,
         broker=broker,
         device=device,
         dtype=plan_dtype,
+        graph=graph,
     )
     try:
         p_via, r_via, bp1_list, sets_via = planner.plan_convex_set_path(
@@ -103,7 +107,7 @@ def _stack_fleet(planned, q0, batch, dtype):
 
 def build_fleet(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
                 seed: int = 0, dtype=np.float32, device=DEFAULT_DEVICE,
-                plan_dtype=torch.float32):
+                plan_dtype=torch.float32, graph: bool | None = None):
     """Plan ``batch`` randomized scenes one after another and stack them
     (carries, q0s, obstacle arrays). Failed plans are re-drawn."""
     device = checked_device(device)
@@ -115,7 +119,7 @@ def build_fleet(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
         draws += 1
         obstacles, goal = random_scene(rng, n_obstacles)
         out = plan_scene(q0, goal, obstacles, seed + draws, cfg, dtype,
-                         device=device, plan_dtype=plan_dtype)
+                         device=device, plan_dtype=plan_dtype, graph=graph)
         if out is not None:
             planned.append(out)
     if len(planned) < batch:
@@ -126,7 +130,7 @@ def build_fleet(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
 def build_fleet_sync(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
                      seed: int = 0, dtype=np.float32, n_workers: int | None = None,
                      max_batch: int = 256, device=DEFAULT_DEVICE,
-                     plan_dtype=torch.float32):
+                     plan_dtype=torch.float32, graph: bool | None = None):
     """Phase-synchronous batched fleet planning: ``n_workers`` threads plan
     draws whose kernel calls meet at a barrier (`sync_broker.PhaseSyncBroker`):
     the moment every worker waits on a kernel result, all pending calls of a
@@ -142,7 +146,7 @@ def build_fleet_sync(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
     if n_workers is None:
         n_workers = min(batch, max_batch)
     q0 = DEMO_Q0.copy() if q0 is None else np.asarray(q0, float)
-    brk = PhaseSyncBroker(max_batch=max_batch, device=device, dtype=plan_dtype)
+    brk = PhaseSyncBroker(max_batch=max_batch, device=device, dtype=plan_dtype, graph=graph)
     register_planner_kernels(brk, max_set_size=20)
 
     results = {}
@@ -211,7 +215,7 @@ def _mp_plan_block(args):
     from ..ops.cuda_proj import line_polytope_projection
     from ..ops.linalg import kkt_inverse
 
-    draws, q0, n_obstacles, seed, cfg, dtype_name, device, plan_dtype = args
+    draws, q0, n_obstacles, seed, cfg, dtype_name, device, plan_dtype, graph = args
     dtype = np.dtype(dtype_name).type
     a0, b0 = kkt_inverse.launches, line_polytope_projection.launches
     out = []
@@ -219,7 +223,7 @@ def _mp_plan_block(args):
         rng_i = np.random.default_rng(seed + 1000 * draw)
         obstacles, goal = random_scene(rng_i, n_obstacles)
         planned = plan_scene(q0, goal, obstacles, seed + draw, cfg, dtype,
-                             device=device, plan_dtype=plan_dtype)
+                             device=device, plan_dtype=plan_dtype, graph=graph)
         if planned is not None:
             out.append((draw, planned[0], planned[1]))
     return out, {"pid": os.getpid(),
@@ -237,7 +241,8 @@ _MP_ENV = {"OMP_NUM_THREADS": "1", "OPENBLAS_NUM_THREADS": "1", "MKL_NUM_THREADS
 def build_fleet_mp(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
                    seed: int = 0, dtype=np.float32, n_procs: int | None = None,
                    block: int = 32, pin: bool = True, device=DEFAULT_DEVICE,
-                   plan_dtype=torch.float32, timeout: float | None = None):
+                   plan_dtype=torch.float32, timeout: float | None = None,
+                   graph: bool | None = None):
     """Plan a large fleet on a pool of worker processes, each planning
     unbrokered on ``device`` in ``plan_dtype`` with one torch thread.
 
@@ -251,7 +256,8 @@ def build_fleet_mp(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
     kernel library and the geometry library first, so the workers only
     load them. ``n_procs`` defaults to one per host core on the CPU and to
     ``CARD_PROCS`` on a card. ``timeout`` bounds the wait for each block's
-    result.
+    result. ``graph`` is the workers' planners' (each worker process
+    captures its own graphs).
 
     Returns (carry_b, q0_b, obs_b, info): ``info`` holds ``planned``,
     ``draws``, ``wall_s``, ``plans_per_s``, ``n_procs`` and the workers'
@@ -272,7 +278,7 @@ def build_fleet_mp(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
             n_procs = min(n_procs, CARD_PROCS)
     n_draws = batch + max(min(64, batch), batch // 8)
     tasks = [(list(range(lo + 1, min(lo + block, n_draws) + 1)), q0, n_obstacles, seed, cfg,
-              np.dtype(dtype).name, str(device), plan_dtype)
+              np.dtype(dtype).name, str(device), plan_dtype, graph)
              for lo in range(0, n_draws, block)]
     t0 = time.perf_counter()
     ctx = mp.get_context("spawn")
@@ -322,7 +328,8 @@ def build_fleet_mp(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
 def build_fleet_threaded(batch: int, cfg: MPCParams, q0=None, n_obstacles: int = 3,
                          seed: int = 0, dtype=np.float32, n_threads: int = 8,
                          linger: float = 0.030, device_search: bool = False,
-                         device=DEFAULT_DEVICE, plan_dtype=torch.float32):
+                         device=DEFAULT_DEVICE, plan_dtype=torch.float32,
+                         graph: bool | None = None):
     """Like `build_fleet`, but plans scenes on a thread pool whose
     device-kernel calls coalesce through a `broker.BatchBroker` into shared
     batched executions. Scene ``draw`` = 1, 2, ... uses the rng seed
@@ -335,7 +342,7 @@ def build_fleet_threaded(batch: int, cfg: MPCParams, q0=None, n_obstacles: int =
     from .broker import BatchBroker, register_planner_kernels
 
     q0 = DEMO_Q0.copy() if q0 is None else np.asarray(q0, float)
-    brk = BatchBroker(linger=linger, device=device, dtype=plan_dtype)
+    brk = BatchBroker(linger=linger, device=device, dtype=plan_dtype, graph=graph)
     register_planner_kernels(brk, max_set_size=20, device_search=device_search)
 
     results = {}

@@ -11,7 +11,7 @@ order. An ``Unpickler`` maps both onto this package's NamedTuples.
 brings any result tree back. Unpickle only cache files this repository's
 tools wrote.
 
-CLI:  python -m boundplanner_tpu_torch.parallel.fleet_cache B SEED out.pkl [--device cpu]
+CLI:  python -m boundplanner_tpu_torch.parallel.fleet_cache B SEED out.pkl [--device cpu] [--eager]
 
 (the card by default; a run without one exits at once with an error)
 """
@@ -60,8 +60,10 @@ def cache_path(batch: int, seed: int, nr_segs: int, root: str | None = None) -> 
 
 
 def build_and_save(batch: int, seed: int, path: str, n_threads: int = 8,
-                   dtype=np.float32, device=DEFAULT_DEVICE, plan_dtype=torch.float32):
-    """Plan the fleet on ``device`` in ``plan_dtype`` and pickle it.
+                   dtype=np.float32, device=DEFAULT_DEVICE, plan_dtype=torch.float32,
+                   graph: bool | None = None):
+    """Plan the fleet on ``device`` in ``plan_dtype`` (``graph``: the
+    planners', `planner.BoundPlanner`) and pickle it.
 
     Fleets under 512 scenes use the broker-coalesced thread builder
     (`fleet.build_fleet_threaded`, its broker's counters as the stats);
@@ -74,11 +76,12 @@ def build_and_save(batch: int, seed: int, path: str, n_threads: int = 8,
     cfg = perf_mpc_params()
     if batch >= 512:
         carry_b, q0_b, obs_b, stats = build_fleet_mp(
-            batch, cfg, seed=seed, dtype=dtype, device=device, plan_dtype=plan_dtype)
+            batch, cfg, seed=seed, dtype=dtype, device=device, plan_dtype=plan_dtype,
+            graph=graph)
     else:
         carry_b, q0_b, obs_b, brk = build_fleet_threaded(
             batch, cfg, seed=seed, dtype=dtype, n_threads=n_threads,
-            device=device, plan_dtype=plan_dtype,
+            device=device, plan_dtype=plan_dtype, graph=graph,
         )
         stats = {
             "calls_served": brk.calls_served,
@@ -117,17 +120,19 @@ def load_fleet(path: str, device=DEFAULT_DEVICE, dtype=torch.float32):
 
 
 def ensure(batch: int, seed: int, nr_segs: int, timeout: float = 3600.0,
-           device=DEFAULT_DEVICE):
+           device=DEFAULT_DEVICE, graph: bool | None = None):
     """The cached fleet (the payload of `load`), built first on ``device``
     in a subprocess if the file is missing (the subprocess plans with its
     own interpreter and device context, so a caller that holds the card
-    for other work is not slowed by the planner's threads)."""
+    for other work is not slowed by the planner's threads; ``graph=False``
+    passes ``--eager`` on)."""
     device = checked_device(device)
     path = cache_path(batch, seed, nr_segs)
     if not os.path.exists(path):
         root = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
         subprocess.run([sys.executable, "-m", "boundplanner_tpu_torch.parallel.fleet_cache",
-                        str(batch), str(seed), path, "--device", str(device)],
+                        str(batch), str(seed), path, "--device", str(device)]
+                       + (["--eager"] if graph is False else []),
                        check=True, timeout=timeout, cwd=root)
     return load(path)
 
@@ -139,8 +144,12 @@ def main(argv):
         i = args.index("--device")
         device = args[i + 1]
         del args[i : i + 2]
+    graph = None
+    if "--eager" in args:
+        args.remove("--eager")
+        graph = False
     b, s, out = int(args[0]), int(args[1]), args[2]
-    payload = build_and_save(b, s, out, device=device)
+    payload = build_and_save(b, s, out, device=device, graph=graph)
     print(f"fleet cache: {b} scenes -> {out} (broker: {payload['broker_stats']})")
 
 

@@ -15,17 +15,21 @@ planning worker registers itself, a kernel call parks its request, and
 the moment the last active worker parks (no worker can make progress
 without a kernel result) the whole pending pool is flushed: each key's
 queue runs as one chunked, power-of-two-padded call of its batch-major
-function on the broker's device and dtype, in the thread of the last
-parker, with no lock held.
+function on the broker's device and dtype (on the card the replay of the
+process's graph of (key, width), `planner.planner.device_call`, unless
+``graph`` is False), in the thread of the last parker, with no broker
+lock held.
 
 Deadlock-freedom: a flush fires exactly when blocked == active, and a
 worker is always runnable, parked in :meth:`call`, or deregistered (the
 worker loop of ``build_fleet_sync`` deregisters in a ``finally``), so the
 last parker or the last deregistering worker always triggers the flush.
-No lock a worker can hold is held across :meth:`call`: the process-wide
-lock of `ops.sqp` (``_TRANSFORMS``) is taken only inside the registered
-kernel bodies (the via-rotation SQP), which the flushing thread runs
-while every other worker is parked. The spawner must call
+No lock a worker can hold is held across :meth:`call`: the graph locks,
+the card's capture lock and the process-wide ``_TRANSFORMS`` of `ops.sqp`
+(taken in that order, `mpc.graph`) are held only inside one kernel call
+(a graph's copy-in, replay or capture and clone-out; the via-rotation
+SQP's body), which the flushing thread runs while every other worker is
+parked, and are released before it delivers. The spawner must call
 :meth:`worker_enter` once per worker before starting any thread, or an
 early worker that parks before its siblings register flushes a narrow
 batch. A kernel error is delivered to every parked ticket of its key and
@@ -39,7 +43,8 @@ from typing import Any, Callable, Dict, List
 
 import torch
 
-from ..utils.device import DEFAULT_DEVICE, checked_device
+from ..planner.planner import device_call
+from ..utils.device import DEFAULT_DEVICE, checked_device, graph_route
 from ..utils.tree import to_numpy, to_torch, tree_map, tree_stack
 from .broker import _pad_pow2
 
@@ -63,13 +68,15 @@ class PhaseSyncBroker:
     spawner calls worker_enter for all workers before starting any, and
     each worker calls worker_exit when done.
     call(key, *args): park until the coalesced batch has run; returns this
-    call's row of the results as numpy.
+    call's row of the results as numpy. ``graph`` is `BatchBroker`'s.
     """
 
-    def __init__(self, max_batch: int = 256, device=DEFAULT_DEVICE, dtype=torch.float32):
+    def __init__(self, max_batch: int = 256, device=DEFAULT_DEVICE, dtype=torch.float32,
+                 graph: bool | None = None):
         self.max_batch = max_batch
         self.device = checked_device(device)
         self.dtype = dtype
+        self.graph = graph_route(graph, self.device)
         self._cond = threading.Condition()
         self._pending: Dict[str, List[_Ticket]] = {}
         self._fns: Dict[str, Callable] = {}
@@ -143,7 +150,8 @@ class PhaseSyncBroker:
                 chunk = batch[lo:lo + self.max_batch]
                 padded, width = _pad_pow2(tree_stack([t.args for t in chunk]), len(chunk),
                                           self.max_batch)
-                out = to_numpy(fn(*to_torch(padded, self.device, self.dtype)))
+                out = to_numpy(device_call(key, fn, to_torch(padded, self.device, self.dtype),
+                                           self.graph))
                 n_runs += 1
                 self.width_hist[width] = self.width_hist.get(width, 0) + 1
                 for i, t in enumerate(chunk):

@@ -25,14 +25,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.device import DEFAULT_DEVICE, checked_device
+from ..utils.device import DEFAULT_DEVICE, checked_device, graph_route
 from .roadmap import PlanningError
 
 NO_EDGE = np.float32(1e18)
 
 
 def shortest_path_device(adj, src: int = 0, dst: int = 1):
-    """Single-source shortest paths on dense padded adjacency matrices.
+    """Single-source shortest paths on dense padded adjacency matrices: the
+    device part of a search (relaxation, walk, ``reached``), which reads
+    nothing back to the host, so a CUDA graph holds it whole; the callers
+    read the results.
 
     adj: (n, n) or (B, n, n); ``NO_EDGE`` where there is no edge (the
     diagonal is irrelevant). Returns (dist, path, reached) with the batch
@@ -44,10 +47,11 @@ def shortest_path_device(adj, src: int = 0, dst: int = 1):
     bsz, n = adj.shape[0], adj.shape[-1]
     dev = adj.device
     idx = torch.arange(n, device=dev)
+    # scalars written with fill_: an assignment would copy each from the host
     dist = torch.full((bsz, n), float(NO_EDGE), dtype=torch.float32, device=dev)
-    dist[:, src] = 0.0
+    dist[:, src].fill_(0.0)
     prev = torch.full((bsz, n), -1, dtype=torch.int64, device=dev)
-    prev[:, src] = src
+    prev[:, src].fill_(src)
     for _ in range(n - 1):
         cand = dist[:, :, None] + adj                   # via-u costs (B, u, v)
         best_u = torch.argmin(cand, dim=1)              # first index on ties
@@ -86,14 +90,20 @@ def roadmap_adjacency(roadmap, n_pad: int, dtype=np.float32):
 
 
 def fleet_shortest_paths(roadmaps, n_pad: int = 64, device=DEFAULT_DEVICE):
-    """One batched call for a whole fleet's roadmap searches on ``device``.
+    """One batched call for a whole fleet's roadmap searches on ``device``
+    (on the card the replay of the process's "spath" graph of that width,
+    `planner.device_call`).
 
     Returns a list of node-id lists (like `SetRoadmap.shortest_path`);
     raises `PlanningError` for any unreached scene, as the host method
     does."""
+    from .planner import device_call
+
     device = checked_device(device)
     adj = np.stack([roadmap_adjacency(r, n_pad) for r in roadmaps])
-    _, paths, reached = shortest_path_device(torch.from_numpy(adj).to(device))
+    _, paths, reached = device_call("spath", shortest_path_device,
+                                    (torch.from_numpy(adj).to(device),),
+                                    graph_route(None, device))
     reached = reached.cpu().numpy()
     if not reached.all():
         bad = np.nonzero(~reached)[0].tolist()

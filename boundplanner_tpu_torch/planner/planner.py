@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import copy
 import functools
+import threading
 import time
 from typing import List, Optional, Sequence
 
@@ -44,9 +45,10 @@ import torch
 from scipy.spatial.transform import Rotation as SciRotation
 
 from ..config import PlannerParams, MPC_SET_ROWS
+from ..mpc import graph as graph_mod
 from ..ops.mvie import mvie
 from ..ops.qp import solve_feasibility, solve_projection
-from ..utils.device import DEFAULT_DEVICE, checked_device
+from ..utils.device import DEFAULT_DEVICE, checked_device, graph_route
 from ..utils.sets import make_box, box_vertices, normalize_set_size, reduce_ineqs
 from ..utils.tree import to_numpy, to_torch, tree_map
 from .roadmap import Junction, PlanningError, SafeSet, SetRoadmap
@@ -62,11 +64,15 @@ def _find_set_line_ws(p0, p1, obs, ws_min, ws_max, n_rows):
     return find_set_line(p0, p1, obs, 0.0, ws_min, ws_max, limit_space=False, n_rows=n_rows)
 
 
-def planner_kernels(max_set_size: int, max_via: int = 6):
-    """The batch-major functions behind the planner's device-kernel keys
-    (the broker registers the same ones): set growth, MVIE, intersection
-    feasibility, EE-fit probing, point projection, and the via-rotation NLP
-    of each via count 1..max_via."""
+@functools.lru_cache(maxsize=None)
+def via_rot_kernel(nr_via: int):
+    """The via-rotation NLP of ``nr_via`` vias (one function per count, so
+    every planner and broker of the process shares its graphs)."""
+    return functools.partial(solve_via_rot, nr_via=nr_via)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_table(max_set_size: int, max_via: int):
     kernels = {
         "fsap": functools.partial(find_set_around_point, fixed_mid=False, n_rows=max_set_size),
         "fsap_mid": functools.partial(find_set_around_point, fixed_mid=True, n_rows=max_set_size),
@@ -77,8 +83,56 @@ def planner_kernels(max_set_size: int, max_via: int = 6):
         "proj": solve_projection,
     }
     for k in range(1, max_via + 1):
-        kernels[f"via_rot_{k}"] = functools.partial(solve_via_rot, nr_via=k)
+        kernels[f"via_rot_{k}"] = via_rot_kernel(k)
     return kernels
+
+
+def planner_kernels(max_set_size: int, max_via: int = 6):
+    """The batch-major functions behind the planner's device-kernel keys
+    (the broker registers the same ones): set growth, MVIE, intersection
+    feasibility, EE-fit probing, point projection, and the via-rotation NLP
+    of each via count 1..max_via. The functions are built once per
+    (max_set_size, max_via); the dict is the caller's own."""
+    return dict(_kernel_table(max_set_size, max_via))
+
+
+# the process's planner graphs, as JAX's jit cache: one per (kernel key,
+# the function and its static arguments, input signature), shared by
+# every BoundPlanner and broker
+_GRAPHS: dict = {}
+_GRAPHS_LOCK = threading.Lock()
+
+
+def _static_key(fn):
+    """A function with its static arguments: a ``functools.partial`` by
+    value (its function, arguments and keywords), anything else by
+    identity."""
+    if isinstance(fn, functools.partial):
+        return fn.func, fn.args, tuple(sorted(fn.keywords.items()))
+    return fn
+
+
+def device_call(key: str, fn, inputs, graph: bool):
+    """``fn(*inputs)`` (trees of tensors, a leading batch axis): eagerly,
+    or replayed from the process's graph of (``key``, ``fn`` and its static
+    arguments, the inputs' signature) when ``graph`` is set
+    (`mpc.graph.Graph`: its first call runs eagerly and captures)."""
+    if not graph:
+        return fn(*inputs)
+    cache_key = (key, _static_key(fn), graph_mod.signature(inputs))
+    with _GRAPHS_LOCK:
+        runner = _GRAPHS.get(cache_key)
+        if runner is None:
+            runner = _GRAPHS[cache_key] = graph_mod.Graph(fn, inputs)
+    return runner(*inputs)
+
+
+def graph_stats() -> list:
+    """``stats()`` of each of the process's planner graphs, with its kernel
+    key."""
+    with _GRAPHS_LOCK:
+        items = list(_GRAPHS.items())
+    return [{"key": k[0], **runner.stats()} for k, runner in items]
 
 
 def _pad(a, b, rows):
@@ -122,6 +176,7 @@ class BoundPlanner:
         broker=None,
         device=DEFAULT_DEVICE,
         dtype=torch.float32,
+        graph: bool | None = None,
     ):
         # optional `parallel.broker.BatchBroker`: when set, the device-kernel
         # wrappers below coalesce with other scenes' planners into shared
@@ -131,6 +186,8 @@ class BoundPlanner:
         # mirrors the JAX package with x64 off, float64 with x64 on
         self.device = checked_device(device)
         self.dtype = dtype
+        # the route of the direct device calls on the card (`device_call`)
+        self.graph = graph_route(graph, self.device)
         self.params = PlannerParams(
             e_p_max=e_p_max,
             obs_size_increase=obs_size_increase,
@@ -190,11 +247,13 @@ class BoundPlanner:
     def _run(self, key, *args):
         """One device-kernel call: through the broker when it serves ``key``
         (coalesced with other planners' calls), else as a batch of one on
-        (device, dtype). Returns this call's results as numpy."""
+        (device, dtype), through the key's graph on the card unless
+        ``graph`` is False. Returns this call's results as numpy."""
         if self.broker is not None and key in self.broker._fns:
             return self.broker.call(key, *args)
         batch = to_torch(tree_map(lambda a: np.asarray(a)[None], args), self.device, self.dtype)
-        return tree_map(lambda a: a[0], to_numpy(self._kernels[key](*batch)))
+        out = device_call(key, self._kernels[key], batch, self.graph)
+        return tree_map(lambda a: a[0], to_numpy(out))
 
     def _find_set_around_point(self, p_seed, fixed_mid=False):
         a, b, shape, center, ok = self._run(
@@ -360,7 +419,7 @@ class BoundPlanner:
                 [_pad(s[0], s[1], FIT_ROWS)[1] for s in seg_sets[: nr_via + 1]]
             )
             via_key = f"via_rot_{nr_via}"
-            self._kernels.setdefault(via_key, functools.partial(solve_via_rot, nr_via=nr_via))
+            self._kernels.setdefault(via_key, via_rot_kernel(nr_via))
             res = self._run(
                 via_key, x0, np.asarray(start, float), np.asarray(end, float),
                 np.asarray(self.l_ee, float), np.asarray(self.omega_normed, float),

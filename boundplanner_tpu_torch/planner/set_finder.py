@@ -224,11 +224,8 @@ def find_set_around_line(p0, dp1, obs: ObstacleArrays, ws_min, ws_max,
     dp_ref = dp1 / torch.clamp(l_seg, min=1e-12)[:, None]
     p_seed = 0.5 * (p0 + p1)
     a_lb = l_seg ** 2 / 4.0
-    b1d = torch.where(
-        (torch.abs(dp_ref[:, 2]) < 0.99)[:, None],
-        torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev),
-        torch.tensor([0.0, 1.0, 0.0], dtype=dtype, device=dev),
-    )
+    eye = torch.eye(3, dtype=dtype, device=dev)     # rows: the axes, built on the device
+    b1d = torch.where((torch.abs(dp_ref[:, 2]) < 0.99)[:, None], eye[2], eye[1])
     b1 = gram_schmidt(dp_ref, b1d)
     b1 = b1 / torch.clamp(torch.linalg.vector_norm(b1, dim=-1), min=1e-12)[:, None]
     b2 = torch.linalg.cross(dp_ref, b1, dim=-1)

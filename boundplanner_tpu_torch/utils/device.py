@@ -21,3 +21,12 @@ def checked_device(device) -> torch.device:
             f"device {dev} was requested but no CUDA device is available; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def graph_route(graph, device: torch.device) -> bool:
+    """Whether an object on ``device`` replays CUDA graphs, from its
+    ``graph`` argument: ``None`` (the default) on a CUDA device and not on
+    the CPU, ``False`` never; ``True`` raises ``ValueError`` off the card."""
+    if graph and device.type != "cuda":
+        raise ValueError(f"graph=True needs a CUDA device, not {device}")
+    return device.type == "cuda" if graph is None else bool(graph)

@@ -10,6 +10,7 @@ Run from the repository root on a machine with one NVIDIA GPU (H100):
     python3 chip_smoke.py --only-solver-configs [--out DIR]
     python3 chip_smoke.py --only-gates [--out DIR]
     python3 chip_smoke.py --only-graph [--out DIR]
+    python3 chip_smoke.py --only-planner-graph [--out DIR]
 
 The second form runs only the runtime phases (13-15 below); the fifth
 only builds, then runs kernel A at the retry's shape, kernel B's folds
@@ -24,8 +25,11 @@ both give the same outputs by value; it exits non-zero where they differ.
 The fourth only builds, then plans the fleet of phase 9 with the threaded
 and the phase-synchronous builder in turns (threaded, sync, sync,
 threaded): each run's plans/s, kept draws, broker counters and launches,
-and sound corridors (asserted). The last only builds, then runs phase 5b
-below and the single arm's route comparison of phase 14 (~4 min).
+and sound corridors (asserted); then the threaded, phase-synchronous and
+process-pool builders at their phases' sizes, each eagerly
+(``graph=False``) and then through the planner's graphs. The seventh only builds, then runs phase 5b
+below and the single arm's route comparison of phase 14 (~4 min); the
+last only builds, then runs phase 7b.
 
 Phases (each asserts; any failure exits non-zero):
 
@@ -76,6 +80,22 @@ Phases (each asserts; any failure exits non-zero):
    (1280, 4, 4);
 7. the planner in f64: one fleet draw (seed 7, draw 1) planned by
    ``parallel.fleet.plan_scene`` on the CPU and on the card, same carry;
+   7b. (``planner_graph``, also alone: ``--only-planner-graph``) the
+   planner's graph route (the default on the card: every planner device
+   call replays the process's CUDA graph of its key, static arguments and
+   input signature) against its eager route (``graph=False``): draw 1 in
+   f32 eagerly (each key's first call under
+   ``set_sync_debug_mode("error")``), through the graphs cold and warm,
+   equal bit for bit with the same launches; the eager plan and a warm
+   graph plan under ``torch.profiler`` (device time, busy share, kernel A
+   and B by their device names); each key at width 2 and the "spath"
+   search, graph = eager bit for bit with the same launches; the
+   unbrokered "proj" call through its graph; ``build_fleet_threaded``
+   (phase 9's size) eagerly, then cold (every batched call equal to the
+   eager function on the same batch) and warm through the graphs;
+   ``build_fleet_sync`` (phase 17's size) in both routes, equal bit for
+   bit; plans/s; graphs, capture seconds and pool bytes per key. Every
+   later phase that plans runs the graph route;
 8. the batched shortest path (``planner.device_search``) on the card: 128
    random roadmaps padded to 64 junctions against the host Dijkstra;
 9. the planner path: ``parallel.fleet.build_fleet_threaded`` plans a
@@ -1132,7 +1152,7 @@ def phase_kernel_a_planner(rng, dev):
             for bsz, n in PLANNER_CHOL_SHAPES]
 
 
-def plan_draw(draw, cfg, device, plan_dtype, dtype, broker=None):
+def plan_draw(draw, cfg, device, plan_dtype, dtype, broker=None, graph=None):
     """`plan_scene` of fleet draw ``draw`` (the draw scheme of the cached
     fleet: rng seed PLAN_SEED + 1000 draw, planner seed PLAN_SEED + draw)."""
     import numpy as np
@@ -1141,7 +1161,7 @@ def plan_draw(draw, cfg, device, plan_dtype, dtype, broker=None):
     obstacles, goal = random_scene(np.random.default_rng(PLAN_SEED + 1000 * draw),
                                    PLAN_OBSTACLES)
     return plan_scene(DEMO_Q0, goal, obstacles, PLAN_SEED + draw, cfg, dtype,
-                      broker=broker, device=device, plan_dtype=plan_dtype)
+                      broker=broker, device=device, plan_dtype=plan_dtype, graph=graph)
 
 
 def phase_planner_f64(cfg, dev):
@@ -1174,6 +1194,309 @@ def phase_planner_f64(cfg, dev):
     emit(row)
     assert row["vias_cpu"] == row["vias_card"], row
     assert err <= 1e-9, f"f64 plan on the card disagrees with the CPU: {err}"
+    return row
+
+
+class KeyCalls:
+    """Within ``with``: every call of ``device_call`` made through
+    ``module`` (`planner.planner` for a planner's direct calls,
+    `parallel.broker` for a ``BatchBroker``'s batched ones) recorded as
+    (key, function, input clones, outputs), from any thread; with
+    ``sync_check``, the first call of each key runs under
+    ``torch.cuda.set_sync_debug_mode("error")`` (an eager call that waits
+    for the card, or copies from the host, raises)."""
+
+    def __init__(self, module, sync_check=False):
+        self.module, self.sync_check = module, sync_check
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+        from boundplanner_tpu_torch.utils.tree import tree_map
+
+        self.real = real = self.module.device_call
+        seen = set()
+
+        def recording(key, fn, inputs, graph):
+            clones = tree_map(torch.clone, inputs)
+            checked = self.sync_check and key not in seen
+            seen.add(key)
+            if checked:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = real(key, fn, inputs, graph)
+            finally:
+                if checked:
+                    torch.cuda.set_sync_debug_mode(0)
+            self.calls.append((key, fn, clones, out))
+            return out
+
+        self.module.device_call = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.module.device_call = self.real
+
+    def keys(self):
+        return sorted({c[0] for c in self.calls})
+
+
+def first_key_difference(eager, graph):
+    """The first call of two recorded plans (`KeyCalls`) whose outputs
+    differ, with `mpc.graph.first_difference` on that call's inputs: None
+    when every call agrees."""
+    from boundplanner_tpu_torch.mpc.graph import first_difference
+    from boundplanner_tpu_torch.utils.tree import to_numpy
+
+    for i, (ce, cg) in enumerate(zip(eager.calls, graph.calls)):
+        if ce[0] != cg[0] or not tree_equal(to_numpy(ce[3]), to_numpy(cg[3])):
+            return {"call": i, "key": ce[0], "graph_key": cg[0],
+                    "first_differing_op": first_difference(ce[1], cg[2])}
+    if len(eager.calls) != len(graph.calls):
+        return {"call": min(len(eager.calls), len(graph.calls)), "key": "end of one plan"}
+    return None
+
+
+def calls_equal_eager(calls):
+    """Each recorded call (`KeyCalls`) run again eagerly on its inputs:
+    {"calls", "widths" per key, "differing": [(index, key, width)]} (a
+    differing call returned other values than the eager function on the
+    same batch)."""
+    from boundplanner_tpu_torch.utils.tree import to_numpy
+
+    widths, differing = {}, []
+    for i, (key, fn, inputs, out) in enumerate(calls.calls):
+        width = int(inputs[0].shape[0])
+        widths.setdefault(key, {}).setdefault(width, 0)
+        widths[key][width] += 1
+        if not tree_equal(to_numpy(out), to_numpy(fn(*inputs))):
+            differing.append((i, key, width))
+    return {"calls": len(calls.calls), "widths": widths, "differing": differing}
+
+
+def profile_run(fn):
+    """fn() under ``torch.profiler`` (the card's activity only: a plan runs
+    ~10^6 kernels): its device events, device time, the card's busy share
+    (the union of device events over the span of all events, `union_us`)
+    and each kernel's launches by its device name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    events = prof.profiler.kineto_results.events()
+    spans = [(e.start_ns(), e.end_ns()) for e in events]
+    device = [e for e in events if e.device_type() == DeviceType.CUDA]
+    busy = union_us([(e.start_ns(), e.end_ns()) for e in device]) * 1e-3
+    window = (max(hi for _, hi in spans) - min(lo for lo, _ in spans)) * 1e-3
+    names = [e.name() for e in device]
+    row = {"wall_s": wall, "device_events": len(device), "device_ms": 1e-3 * busy,
+           "window_ms": 1e-3 * window, "busy_share": busy / window,
+           "kernel_launches": {k: sum(name in n for n in names)
+                               for k, name in KERNEL_DEVICE_NAMES.items()},
+           "parse_s": time.perf_counter() - t0}
+    return out, row
+
+
+def graph_totals(stats):
+    """Graphs, capture seconds, pool bytes and replays per key of
+    `planner.graph_stats()` rows, and their totals."""
+    per_key = {}
+    for st in stats:
+        k = per_key.setdefault(st["key"], {"graphs": 0, "capture_s": 0.0, "pool_bytes": 0,
+                                           "replays": 0, "widths": []})
+        k["graphs"] += 1
+        k["capture_s"] += st["capture_s"] or 0.0
+        k["pool_bytes"] += st["pool_bytes"] or 0
+        k["replays"] += st["replays"]
+        k["widths"].append(st["batch"])
+    total = {f: sum(k[f] for k in per_key.values())
+             for f in ("graphs", "capture_s", "pool_bytes", "replays")}
+    return {"per_key": per_key, "total": total}
+
+
+def key_graph_checks(calls, dev):
+    """Each recorded key at width 2 (its first two calls stacked, the first
+    twice where it had one) and "spath" on two random roadmaps: the eager
+    call under the sync check, then a fresh graph's first call (warm-up and
+    capture) and a replay, both equal to the eager call bit for bit, the
+    replay's launches equal to the eager call's (by the bookkeeping); and
+    whether the first call's row is the same at width 1 and at width 2
+    (``width_independent``, reported: a batched linear-algebra call may
+    take another algorithm at another batch size)."""
+    import numpy as np
+    import torch
+    from boundplanner_tpu_torch.mpc.graph import Graph
+    from boundplanner_tpu_torch.planner.device_search import roadmap_adjacency, shortest_path_device
+    from boundplanner_tpu_torch.utils.tree import to_numpy, tree_map
+
+    by_key = {}
+    for key, fn, inputs, _ in calls.calls:
+        by_key.setdefault(key, (fn, []))[1].append(inputs)
+    batches = {key: (fn, tree_map(lambda a, b: torch.cat([a, b]),
+                                  inputs[0], inputs[min(1, len(inputs) - 1)]), inputs[0])
+               for key, (fn, inputs) in by_key.items()}
+    rng = np.random.default_rng(11)
+    adj = np.stack([roadmap_adjacency(random_roadmap(rng, n), SPATH_PAD) for n in (12, 40)])
+    adj = torch.from_numpy(adj).to(dev)
+    batches["spath"] = (shortest_path_device, (adj,), (adj[:1],))
+    rows = {}
+    for key, (fn, batch, first_call) in sorted(batches.items()):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ref, _, eager_launches = counted(lambda: fn(*batch))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ref = to_numpy(ref)
+        alone = to_numpy(fn(*first_call))
+        runner = Graph(fn, batch)
+        first, capture_wall, _ = counted(lambda: runner(*batch))
+        got, replay_s, replay_launches = counted(lambda: runner(*batch))
+        rows[key] = {"equal_first": tree_equal(to_numpy(first), ref),
+                     "equal_replay": tree_equal(to_numpy(got), ref),
+                     "width_independent": tree_equal(alone, tree_map(lambda a: a[:1], ref)),
+                     "launches_eager": eager_launches, "launches_replay": replay_launches,
+                     "first_call_s": capture_wall, "replay_s": replay_s, **runner.stats()}
+    return rows
+
+
+def same_draws_equal(run, ref):
+    """The scenes of two fleet builds (``kept_draws`` and ``out`` = (carry,
+    obs)) that planned the same draw: which draws, and whether each such
+    scene is equal bit for bit (a build keeps its first successes in
+    completion order, so the draws kept depend on thread timing)."""
+    from boundplanner_tpu_torch.utils.tree import tree_map
+
+    common = [d for d in run["kept_draws"] if d is not None and d in ref["kept_draws"]]
+    scene = lambda r, d: tree_map(lambda a: a[r["kept_draws"].index(d)], r["out"])
+    return {"draws": common,
+            "equal": all(tree_equal(scene(run, d), scene(ref, d)) for d in common)}
+
+
+def phase_planner_graph(cfg, dev):
+    """The planner's graph route (on the card every planner device call
+    replays the process's graph of its key, static arguments and input
+    signature) against its eager route (``graph=False``), in one process:
+
+    - draw 1 in f32 planned eagerly (each key's first call under the sync
+      check), through the graphs cold (the cache emptied: it captures) and
+      warm (it replays), then warm and eagerly under ``torch.profiler``:
+      the carries equal bit for bit (else the first differing call and
+      op); launches equal by the bookkeeping and by the kernels' device
+      names; device time and busy share of each route;
+    - each key at width 2 (`key_graph_checks`): sync check, graph = eager
+      bit for bit, launches, and whether a row depends on the batch width;
+    - the unbrokered "proj" call (30 kernel A launches) eagerly and through
+      its graph, CUDA-event means;
+    - ``build_fleet_threaded`` at ``plan_fleet``'s size eagerly, then
+      through the graphs cold (the cache emptied: one thread captures while
+      others replay) and warm: every batched call of the cold run equal to
+      the eager function on the same batch, bit for bit; the scenes of the
+      draws both runs kept compared (reported: the broker coalesces by
+      thread timing, and a row may depend on its batch's width);
+    - ``build_fleet_sync`` at ``sync_fleet``'s size (its barrier batches
+      deterministically) eagerly and through the graphs: equal bit for bit;
+    - plans/s of each run; graphs, capture seconds, pool bytes per key."""
+    import numpy as np
+    import torch
+    from boundplanner_tpu_torch.parallel import broker as broker_mod
+    from boundplanner_tpu_torch.parallel.fleet import build_fleet_sync, build_fleet_threaded
+    from boundplanner_tpu_torch.planner import planner as planner_mod
+
+    def one_plan(graph):
+        return plan_draw(1, cfg, dev, torch.float32, np.float32, graph=graph)
+
+    planner_mod._GRAPHS.clear()      # the graph route's first plan captures
+    with KeyCalls(planner_mod, sync_check=True) as eager_calls:
+        eager, eager_s, eager_l = counted(lambda: one_plan(False))
+    assert eager is not None, "draw 1 failed to plan"
+    with KeyCalls(planner_mod) as cold_calls:
+        cold, cold_s, cold_l = counted(lambda: one_plan(None))
+    warm, warm_s, warm_l = counted(lambda: one_plan(None))
+    prof, profiled = {}, {}
+    for route, graph in (("graph", None), ("eager", False)):
+        (profiled[route], prof[route]), _, launches = counted(
+            lambda: profile_run(lambda: one_plan(graph)))
+        prof[route]["launches"] = launches
+    single_equal = {"cold": tree_equal(cold, eager), "warm": tree_equal(warm, eager),
+                    **{f"{r}_profiled": tree_equal(p, eager) for r, p in profiled.items()}}
+    diff = None if all(single_equal.values()) else first_key_difference(eager_calls, cold_calls)
+    single_stats = planner_mod.graph_stats()
+    keys = key_graph_checks(eager_calls, dev)
+
+    _, fn, inputs, _ = next(c for c in eager_calls.calls if c[0] == "proj")
+    _, _, proj_launches = counted(lambda: fn(*inputs))
+    proj_row = {"shape": [int(inputs[0].shape[0])] + list(inputs[0].shape[1:]),
+                "launches_per_call": proj_launches,
+                "eager_ms": cuda_ms(lambda: fn(*inputs), 5),
+                "graph_ms": cuda_ms(lambda: planner_mod.device_call("proj", fn, inputs, True),
+                                    50)}
+
+    common = dict(seed=PLAN_SEED, n_obstacles=PLAN_OBSTACLES, dtype=np.float32, device=dev,
+                  plan_dtype=torch.float32)
+    builds = {}
+    for route in ("threaded_eager", "threaded_graph_cold", "threaded_graph_warm",
+                  "sync_eager", "sync_graph"):
+        graph = False if route.endswith("eager") else None
+        if route == "threaded_graph_cold":
+            planner_mod._GRAPHS.clear()
+        recorder = KeyCalls(broker_mod)
+        if route.startswith("threaded"):
+            build = lambda: build_fleet_threaded(PLAN_SCENES, cfg, n_threads=PLAN_THREADS,
+                                                 linger=0.030, graph=graph, **common)
+        else:
+            build = lambda: build_fleet_sync(PLAN_SCENES, cfg, n_workers=PLAN_THREADS,
+                                             graph=graph, **common)
+        if route == "threaded_graph_cold":
+            with recorder:
+                (carry, _, obs, brk), secs, launches = counted(build)
+        else:
+            (carry, _, obs, brk), secs, launches = counted(build)
+        builds[route] = {"wall_s": secs, "plans_per_s": PLAN_SCENES / secs,
+                         "launches": launches, "kept_draws": kept_draws(obs),
+                         "batches_run": brk.batches_run, "calls_served": brk.calls_served,
+                         "out": (carry, obs)}
+        if recorder.calls:
+            builds[route]["calls_equal_eager"] = calls_equal_eager(recorder)
+    threaded_same = {r: same_draws_equal(builds[r], builds["threaded_eager"])
+                     for r in ("threaded_graph_cold", "threaded_graph_warm")}
+    sync_equal = (tree_equal(builds["sync_graph"]["out"], builds["sync_eager"]["out"])
+                  and builds["sync_graph"]["launches"] == builds["sync_eager"]["launches"])
+    cold_calls_check = builds["threaded_graph_cold"]["calls_equal_eager"]
+    builder_stats = planner_mod.graph_stats()
+
+    row = {"phase": "planner_graph",
+           "single": {"eager_s": eager_s, "graph_cold_s": cold_s, "graph_warm_s": warm_s,
+                      "plans_per_s": {"eager": 1 / eager_s, "graph_cold": 1 / cold_s,
+                                      "graph_warm": 1 / warm_s},
+                      "launches": {"eager": eager_l, "graph_cold": cold_l, "graph_warm": warm_l},
+                      "device_calls": len(eager_calls.calls), "keys": eager_calls.keys(),
+                      "equal_bit_for_bit": single_equal, "difference": diff},
+           "sync_checked_keys": eager_calls.keys(), "profiles": prof,
+           "keys_width2": keys, "proj_unbrokered": proj_row,
+           "builds": {r: {k: v for k, v in b.items() if k != "out"} for r, b in builds.items()},
+           "threaded_same_draws": threaded_same, "sync_equal_bit_for_bit": sync_equal,
+           "graphs_single": graph_totals(single_stats),
+           "graphs_builders": graph_totals(builder_stats)}
+    emit(row)
+    assert all(single_equal.values()), f"graph plans differ from the eager plan: {diff}"
+    assert cold_l == eager_l and warm_l == eager_l, row["single"]
+    for route, pr in prof.items():
+        assert pr["kernel_launches"] == pr["launches"] == eager_l, (route, pr)
+    for key, r in keys.items():
+        assert r["equal_first"] and r["equal_replay"], (key, r)
+        assert r["launches_replay"] == r["launches_eager"], (key, r)
+    assert not cold_calls_check["differing"], cold_calls_check
+    assert sync_equal, "the phase-synchronous build differs between routes"
+    assert sum(st["replays"] for st in single_stats) > 0, single_stats
     return row
 
 
@@ -1902,6 +2225,41 @@ def phase_compare_builders(cfg, dev):
     return rows
 
 
+def phase_builder_routes(cfg, dev):
+    """Each fleet builder at its phase's size in both planner routes, the
+    eager route (``graph=False``) first, then the graph route (warm where
+    this process captured before; ``build_fleet_mp``'s workers capture
+    their own graphs): plans/s, kept draws, launches, sound corridors."""
+    import numpy as np
+    import torch
+    from boundplanner_tpu_torch.parallel.fleet import (build_fleet_mp, build_fleet_sync,
+                                                       build_fleet_threaded)
+
+    common = dict(seed=PLAN_SEED, n_obstacles=PLAN_OBSTACLES, dtype=np.float32, device=dev,
+                  plan_dtype=torch.float32)
+    builders = {
+        "threaded": (PLAN_SCENES, lambda graph: build_fleet_threaded(
+            PLAN_SCENES, cfg, n_threads=PLAN_THREADS, linger=0.030, graph=graph, **common)),
+        "sync": (PLAN_SCENES, lambda graph: build_fleet_sync(
+            PLAN_SCENES, cfg, n_workers=PLAN_THREADS, graph=graph, **common)),
+        "mp": (MP_SCENES, lambda graph: build_fleet_mp(
+            MP_SCENES, cfg, block=MP_BLOCK, timeout=900, graph=graph, **common)),
+    }
+    rows = []
+    for name, (scenes, build) in builders.items():
+        for route, graph in (("eager", False), ("graph", None)):
+            (carry, _, obs, _), wall, launches = counted(lambda: build(graph))
+            sound = [corridor_ok(carry, obs, i) for i in range(scenes)]
+            row = {"phase": "builder_routes", "builder": name, "route": route,
+                   "scenes": scenes, "wall_s": wall, "plans_per_s": scenes / wall,
+                   "kept_draws": kept_draws(obs), "launches": launches,
+                   "corridors_sound": sum(sound)}
+            emit(row)
+            assert all(sound), f"{name} {route}: corridor invariants fail"
+            rows.append(row)
+    return rows
+
+
 def recording_publisher():
     """A headless `ros_compat.RosPublisher` that keeps each tick's record
     and payload."""
@@ -2250,6 +2608,7 @@ def main(argv):
     only_solver_configs = "--only-solver-configs" in argv
     only_gates = "--only-gates" in argv
     only_graph = "--only-graph" in argv
+    only_planner_graph = "--only-planner-graph" in argv
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "boundplanner_tpu_torch")):
         print("chip_smoke: boundplanner_tpu_torch not found beside this script",
@@ -2301,6 +2660,13 @@ def main(argv):
             with open(os.path.join(out_dir, "graph.json"), "w") as f:
                 json.dump({"card": card, **rows}, f, indent=1)
         return 0
+    if only_planner_graph:
+        row = phase_planner_graph(perf_mpc_params(), dev)
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, "planner_graph.json"), "w") as f:
+                json.dump({"card": card, "planner_graph": row}, f, indent=1)
+        return 0
     if only_gates:
         from boundplanner_tpu_torch.mpc.e2e import plan_e2e
 
@@ -2321,7 +2687,7 @@ def main(argv):
         return 0
     cfg = perf_mpc_params()
     if compare_builders:
-        rows = phase_compare_builders(cfg, dev)
+        rows = phase_compare_builders(cfg, dev) + phase_builder_routes(cfg, dev)
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
             with open(os.path.join(out_dir, "compare_builders.json"), "w") as f:
@@ -2357,6 +2723,7 @@ def main(argv):
     solver = phase_solver_configs(payload, dev, main_res)
     a_plan = phase_kernel_a_planner(rng, dev)
     phase_planner_f64(cfg, dev)
+    planner_graph = phase_planner_graph(cfg, dev)
     spath = phase_device_search(dev)
     threaded, plan = phase_plan_fleet(cfg, dev, payload)
     fleet, mp_row = phase_fleet_mp(cfg, dev)
@@ -2423,7 +2790,8 @@ def main(argv):
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
             json.dump({"card": card, "main": main_res, "sync_free": sync_free,
                        "graph": graph_row, "main_routes": routes,
-                       "solver_configs": solver, "plan_fleet": plan,
+                       "solver_configs": solver, "planner_graph": planner_graph,
+                       "plan_fleet": plan,
                        "device_search": spath, "fleet_mp": mp_row, "planned_rollout": rollout,
                        "multi_gpu": multi, "runtime_f64": rt64, "runtime_f32": rt32,
                        "runtime_parts": parts, "edges": edges, "sync_fleet": sync,

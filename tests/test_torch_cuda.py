@@ -1,6 +1,6 @@
 """The two hand-written CUDA kernels against their plain PyTorch versions,
-and the tick's CUDA graph against its eager route, on the card. Every
-test here needs a CUDA device and skips without one.
+and the tick's and the planner's CUDA graphs against their eager routes,
+on the card. Every test here needs a CUDA device and skips without one.
 
 The port runs without JAX, and so does this file; it also holds the
 seeded input generators that ``test_torch_kernels.py`` shares. On the
@@ -453,3 +453,87 @@ def test_cuda_graph_first_difference_finds_none(cuda_device):
     # the eager run launched once more, the capture not at all
     assert (kkt_inverse.launches, cuda_proj.line_polytope_projection.launches) == (
         before[0] + 12, before[1] + 1)
+
+
+PLANNER_KEYS = ("fsap", "fsap_mid", "fsl", "mvie", "feas", "fit_ee", "proj", "via_rot_2",
+                "spath")
+
+
+@pytest.fixture(scope="module")
+def planner_key_inputs():
+    """Each planner key's inputs at width 2 on the card: fleet draw 1 (seed
+    7) planned eagerly in f32, each key's first two direct calls stacked
+    (the first twice where it had one; "fsap" takes "fsap_mid"'s), and two
+    random roadmaps' adjacency for "spath"."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from boundplanner_tpu_torch.config import perf_mpc_params
+    from boundplanner_tpu_torch.parallel.fleet import DEMO_Q0, plan_scene, random_scene
+    from boundplanner_tpu_torch.planner import planner as planner_mod
+    from boundplanner_tpu_torch.planner.device_search import NO_EDGE, shortest_path_device
+    from boundplanner_tpu_torch.utils.tree import tree_map
+
+    dev = torch.device("cuda", 0)
+    calls, real = {}, planner_mod.device_call
+
+    def recording(key, fn, inputs, graph):
+        calls.setdefault(key, (fn, []))[1].append(tree_map(torch.clone, inputs))
+        return real(key, fn, inputs, graph)
+
+    obstacles, goal = random_scene(np.random.default_rng(7 + 1000), 3)
+    planner_mod.device_call = recording
+    try:
+        assert plan_scene(DEMO_Q0, goal, obstacles, 8, perf_mpc_params(), np.float32,
+                          device=dev, plan_dtype=torch.float32, graph=False) is not None
+    finally:
+        planner_mod.device_call = real
+    calls["fsap"] = (planner_mod.planner_kernels(20)["fsap"], calls["fsap_mid"][1])
+    out = {key: (fn, tree_map(lambda a, b: torch.cat([a, b]), args[0], args[min(1, len(args) - 1)]))
+           for key, (fn, args) in calls.items()}
+    rng = np.random.default_rng(3)
+    adj = np.full((2, 64, 64), NO_EDGE, np.float32)
+    for b, n in enumerate((10, 30)):
+        for _ in range(3 * n):
+            u, v = rng.integers(0, n, 2)
+            adj[b, u, v] = adj[b, v, u] = rng.uniform(0.1, 2.0)
+    out["spath"] = (shortest_path_device, (torch.from_numpy(adj).to(dev),))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", PLANNER_KEYS)
+def test_cuda_planner_graph_equals_eager(cuda_device, planner_key_inputs, key):
+    """Each planner key's CUDA graph against its eager call on the card, at
+    width 2, bit for bit: the first call (eager warm-up on the side stream,
+    then the capture) and a replay; the replay adds the eager call's
+    kernel A and B launches to the counts, and the eager call neither waits
+    for the card nor copies from the host
+    (``set_sync_debug_mode("error")``)."""
+    from boundplanner_tpu_torch.mpc.graph import Graph
+    from boundplanner_tpu_torch.utils.tree import to_numpy, tree_map
+
+    fn, inputs = planner_key_inputs[key]
+    counts = lambda: (kkt_inverse.launches, cuda_proj.line_polytope_projection.launches)
+    torch.cuda.synchronize()
+    c0 = counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ref = fn(*inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eager_launches = tuple(b - a for a, b in zip(c0, counts()))
+    ref = to_numpy(ref)
+    runner = Graph(fn, inputs)
+    first = to_numpy(runner(*inputs))
+    c1 = counts()
+    got = to_numpy(runner(*inputs))
+    assert runner.replays == 1 and tuple(runner.launches) == eager_launches
+    assert tuple(b - a for a, b in zip(c1, counts())) == eager_launches
+    assert (sum(eager_launches) > 0) == (key != "spath"), eager_launches
+    for tree in (first, got):
+        got_leaves, ref_leaves = [], []
+        tree_map(got_leaves.append, tree)
+        tree_map(ref_leaves.append, ref)
+        assert len(got_leaves) == len(ref_leaves)
+        for g, r in zip(got_leaves, ref_leaves):
+            np.testing.assert_array_equal(g, r)

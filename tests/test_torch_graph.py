@@ -1,17 +1,13 @@
-"""The graph route of the fused tick on the CPU (`mpc.graph.TickGraph`,
+"""The graph route of the fused tick on the CPU (`mpc.graph.Graph`,
 `FleetMPC(graph=...)`).
 
 On the card ``FleetMPC.tick`` replays one CUDA graph per configuration
 and input signature. What the CPU can hold of it:
 
-- (a) capture safety: one tick of each configuration runs under a guard
-  that raises on any host data or host read inside the tick (a captured
-  graph would bake the one in and cannot do the other): ``torch.tensor``,
-  ``torch.as_tensor``/``asarray`` of non-tensor data, ``torch.from_numpy``,
-  ``Tensor.item``, ``__bool__``, ``__int__``, ``__float__``, ``__index__``,
-  ``tolist``, ``cpu``, ``numpy``, and any tensor made from Python data on
-  the way (``aten.lift_fresh``: an index list, a Python scalar assigned
-  into a tensor, each a host-to-card copy on the card);
+- (a) capture safety: one tick of each configuration runs under
+  ``torch_host_guard.host_guard``, which raises on any host data or host
+  read inside the tick (a captured graph would bake the one in and cannot
+  do the other);
 - (b) the graph's body (copy-in, the tick on the static inputs,
   clone-out), run eagerly, equals the eager route bit for bit over a
   3-tick ``fleet_rollout``, also with the escalation retry's own graph;
@@ -23,7 +19,6 @@ Scenes: ``.fleet_cache/test8.pkl`` scenes 0-1 (scene 0 alone at batch 1
 for the default ``MPCParams()``).
 """
 
-import contextlib
 import dataclasses
 import os
 
@@ -33,70 +28,19 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
-from torch.overrides import TorchFunctionMode
-from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_modes
 
 from boundplanner_tpu.config import perf_mpc_params
 from boundplanner_tpu.mpc import bound_mpc as jmpc
 from boundplanner_tpu.parallel.batch import fleet_rollout as jax_fleet_rollout
 from boundplanner_tpu_torch import config as tconfig
 from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
-from boundplanner_tpu_torch.ops import qp as tqp
 from boundplanner_tpu_torch.parallel import batch as tbatch
 from boundplanner_tpu_torch.parallel.fleet_cache import load, to_numpy, to_torch, tree_map
+from torch_host_guard import HostOpError, host_guard
 
 torch.set_num_threads(1)
 FLEET8 = os.path.join(os.path.dirname(__file__), "..", ".fleet_cache", "test8.pkl")
 TICKS = 3
-
-_T = torch.Tensor
-HOST_OPS = {_T.item, _T.__bool__, _T.__int__, _T.__float__, _T.__index__, _T.tolist,
-            _T.cpu, _T.numpy, torch.tensor}
-
-
-class HostOpError(RuntimeError):
-    pass
-
-
-class _HostGuard(TorchFunctionMode):
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        if func in HOST_OPS or (func in (torch.as_tensor, torch.asarray)
-                                and not isinstance(args[0], torch.Tensor)):
-            raise HostOpError(getattr(func, "__qualname__", str(func)))
-        return func(*args, **(kwargs or {}))
-
-
-class _HostDataGuard(TorchDispatchMode):
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func.overloadpacket.__name__ in ("lift_fresh", "lift_fresh_copy"):
-            raise HostOpError(f"{func}: a tensor made from host data")
-        return func(*args, **(kwargs or {}))
-
-
-@contextlib.contextmanager
-def host_guard():
-    """Raise `HostOpError` on any op of ``HOST_OPS`` and on any tensor made
-    from host data (``torch.from_numpy``, which no torch-function mode
-    sees, is swapped out meanwhile). Where the card launches kernel A (one
-    launch in its graph), a library factorization stands in, unguarded:
-    the plain version's column loop would only slow the guard down."""
-    real_from_numpy, real_kkt = torch.from_numpy, tqp.kkt_inverse
-
-    def refuse(*_):
-        raise HostOpError("from_numpy")
-
-    def kernel_a(k):
-        with _disable_current_modes(), torch._C.DisableTorchFunction():
-            eye = torch.eye(k.shape[-1], dtype=k.dtype).expand_as(k)
-            return torch.linalg.solve_triangular(torch.linalg.cholesky_ex(k)[0], eye,
-                                                 upper=False)
-
-    torch.from_numpy, tqp.kkt_inverse = refuse, kernel_a
-    try:
-        with _HostGuard(), _HostDataGuard():
-            yield
-    finally:
-        torch.from_numpy, tqp.kkt_inverse = real_from_numpy, real_kkt
 
 
 def f64(a):

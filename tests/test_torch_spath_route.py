@@ -58,11 +58,11 @@ def test_register_planner_kernels_signature_is_jax():
 
 def test_build_fleet_threaded_takes_jax_arguments():
     """JAX's parameters, in order and with their defaults, then the port's
-    ``device`` and ``plan_dtype``."""
+    ``device``, ``plan_dtype`` and ``graph``."""
     jax_params = params_of(jfleet.build_fleet_threaded)
     port_params = params_of(fleet.build_fleet_threaded)
     assert port_params[:len(jax_params)] == jax_params
-    assert [p[0] for p in port_params[len(jax_params):]] == ["device", "plan_dtype"]
+    assert [p[0] for p in port_params[len(jax_params):]] == ["device", "plan_dtype", "graph"]
 
 
 @pytest.mark.parametrize("device_search", [False, True])
