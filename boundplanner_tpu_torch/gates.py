@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from .config import perf_mpc_params
-from .mpc.bound_mpc import FleetMPC
+from .mpc.bound_mpc import FleetMPC, mpc_tick
 from .ops.cuda_proj import line_polytope_projection
 from .ops.linalg import kkt_inverse
 from .parallel import batch as fleet_batch
@@ -76,6 +76,20 @@ def _since(before):
     return {k: n - before[k] for k, n in _launches().items()}
 
 
+def _diag_step(state, obs, cfg, st):
+    """`rollout_diag`'s scan body (``tools/replay_worst.py``'s): state
+    (carry, q, dq, ddq, jerk, qf); returns (state', record)."""
+    carry, q, dq, ddq, jerk, qf = state
+    meas = fleet_batch._plant_measurement(q, dq, ddq, jerk, qf, st.chain)
+    carry, out = mpc_tick(carry, meas, obs, cfg, st)
+    rec = {"phi": out["phi"][:, 1], "success": out["success"], "viol": out["viol"],
+           "err_cnt": carry.error_count, "dq_max": dq.abs().amax(dim=-1),
+           "cost": out["cost"], "sector": out["sector"]}
+    u0, u1 = out["dddq"][:, 0], out["dddq"][:, 1]
+    q_n, dq, ddq = integrate_jerk_step(q, dq, ddq, u0, u1, cfg.dt)
+    return (carry, q_n, dq, ddq, u1, out["q"][:, -1]), rec
+
+
 @torch.no_grad()
 def rollout_diag(carry, q0, obs, model: FleetMPC, ticks: int):
     """The closed loop of `parallel.batch.fleet_rollout` (without
@@ -83,21 +97,19 @@ def rollout_diag(carry, q0, obs, model: FleetMPC, ticks: int):
     ``tools/replay_worst.py``: per scene and tick ``phi``, ``success``,
     ``viol``, ``err_cnt`` (the carry's error count after the tick),
     ``dq_max`` (the largest joint speed before it), ``cost`` and
-    ``sector``. Returns (final carry, records with leaves (B, ticks))."""
-    dt = model.cfg.dt
+    ``sector``. On the graph route one step graph of its own (JAX jits
+    this scan apart) replays each tick. Returns (final carry, records with
+    leaves (B, ticks))."""
     zeros = torch.zeros_like(q0)
-    q, dq, ddq, jerk, qf = q0, zeros, zeros, zeros, q0
-    recs = []
-    for _ in range(ticks):
-        meas = fleet_batch._plant_measurement(q, dq, ddq, jerk, qf, model.st.chain)
-        carry, out = model.tick(carry, meas, obs)
-        recs.append({"phi": out["phi"][:, 1], "success": out["success"], "viol": out["viol"],
-                     "err_cnt": carry.error_count, "dq_max": dq.abs().amax(dim=-1),
-                     "cost": out["cost"], "sector": out["sector"]})
-        u0, u1 = out["dddq"][:, 0], out["dddq"][:, 1]
-        q_n, dq, ddq = integrate_jerk_step(q, dq, ddq, u0, u1, dt)
-        q, jerk, qf = q_n, u1, out["q"][:, -1]
-    return carry, {k: torch.stack([r[k] for r in recs], dim=1) for k in recs[0]}
+    state = (carry, q0, zeros, zeros, zeros, q0)
+    if model.graph:
+        state, recs = model.step_graph(_diag_step, state, obs).scan(state, obs, ticks)
+    else:
+        recs = []
+        for _ in range(ticks):
+            state, rec = _diag_step(state, obs, model.cfg, model.st)
+            recs.append(rec)
+    return state[0], fleet_batch._stack(recs)
 
 
 def fleet_tensors(fleet, device, dtype, scenes=None):
@@ -255,7 +267,8 @@ def probe_escalation(fleet, scenes=PROBE_SCENES, ticks: int = 50, esc_lanes: int
     escalation and with ``esc_lanes`` lanes at the (``esc_sqp``,
     ``esc_qp``) budget. Returns one row per arm: each scene's fails,
     first failing ticks, worst violation and final phi, the arm's totals,
-    the ticks whose retry ran and the kernels' launches."""
+    the ticks whose retry fired, the retry's runs that fired nothing (a
+    cold step graph's warm-up) and the kernels' launches."""
     device = checked_device(device)
     base = perf_mpc_params()
     arms = {"base": base,
@@ -265,7 +278,8 @@ def probe_escalation(fleet, scenes=PROBE_SCENES, ticks: int = 50, esc_lanes: int
     rows = []
     for arm, cfg in arms.items():
         model = FleetMPC(cfg, device=device, dtype=dtype)
-        before, retries = _launches(), fleet_batch._escalate_failed_lanes.retries
+        esc = fleet_batch._escalate_failed_lanes
+        before, retries, idle = _launches(), esc.retries, esc.idle_runs
         _, recs = fleet_batch.fleet_rollout(*tensors, model, ticks)
         recs = to_numpy(recs)
         per_scene = []
@@ -279,7 +293,8 @@ def probe_escalation(fleet, scenes=PROBE_SCENES, ticks: int = 50, esc_lanes: int
                      "esc": [cfg.esc_sqp_iters, cfg.esc_qp_iters], "ticks": ticks,
                      "scenes": per_scene, "success_rate": float(recs["success"].mean()),
                      "max_viol": float(recs["viol"].max()),
-                     "escalated_ticks": fleet_batch._escalate_failed_lanes.retries - retries,
+                     "escalated_ticks": esc.retries - retries,
+                     "idle_retry_runs": esc.idle_runs - idle,
                      "launches": _since(before)})
     return rows
 

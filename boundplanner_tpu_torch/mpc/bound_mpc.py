@@ -465,10 +465,11 @@ class FleetMPC(nn.Module):
     replays one CUDA graph per tick function, configuration and input
     signature (`mpc.graph.Graph`, the JAX package's ``jax.jit``) on
     CUDA tensors and runs eagerly on the CPU; ``False`` runs eagerly on
-    the card too; ``True`` on the CPU raises. ``graphs`` maps each key to
-    its `Graph`. On a CPU model, setting ``graph = True`` afterwards
-    runs each signature's graph body eagerly (what the tests hold to the
-    eager route)."""
+    the card too; ``True`` on the CPU raises. The closed-loop rollouts
+    replay one graph a control period on that route, of the whole scan
+    body (`step_graph`). ``graphs`` maps each key to its `Graph`. On a
+    CPU model, setting ``graph = True`` afterwards runs each signature's
+    graph body eagerly (what the tests hold to the eager route)."""
 
     def __init__(self, cfg: MPCParams, device=DEFAULT_DEVICE, dtype=torch.float32,
                  graph: bool | None = None):
@@ -501,6 +502,19 @@ class FleetMPC(nn.Module):
             runner = self.graphs[key] = graph_mod.Graph(
                 lambda c, m, o: fn(c, m, o, cfg, st), inputs)
         return runner(*inputs)
+
+    def step_graph(self, step, state, const, *static) -> graph_mod.StepGraph:
+        """The `mpc.graph.StepGraph` of the scan body ``step(state, const,
+        self.cfg, self.st, *static) -> (state', record)`` for the
+        signature of (``state``, ``const``): one per (``step``, the
+        configuration, ``static``, the signature), kept in ``graphs``."""
+        key = (step, self.cfg, static, graph_mod.signature((state, const)))
+        runner = self.graphs.get(key)
+        if runner is None:
+            cfg, st = self.cfg, self.st
+            runner = self.graphs[key] = graph_mod.StepGraph(
+                lambda s, c: step(s, c, cfg, st, *static), state, const)
+        return runner
 
     def tick(self, carry: MPCCarry, meas: dict, obs: ObstacleArrays):
         """One control period (``mpc_tick``) at the model's configuration."""

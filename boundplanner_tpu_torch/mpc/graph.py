@@ -39,10 +39,24 @@ replay's count lands inside another thread's capture.
 On the CPU there is nothing to capture: a `Graph` of CPU tensors runs
 its body eagerly (copy-in, the function on the static inputs, clone-out),
 the CPU tests' view of what the card replays.
+
+`StepGraph` is the JAX package's ``lax.scan``: one graph of a scan's
+body, replayed once a step, whose state stays in the graph's static
+buffers from step to step (`mpc.bound_mpc.FleetMPC.step_graph`, the
+closed-loop rollouts of `parallel.batch` and `gates.rollout_diag`).
+`device_cond` is ``lax.cond`` inside such a body: under the capture its
+branch becomes a conditional (IF) node of the graph, which a replay runs
+only where the predicate on the card holds; the host reads nothing. A
+captured branch's launches are counted apart (``branch_launches``): its
+owner adds them once for each replay whose predicate held, from a count
+the body keeps on the card and the owner reads after the scan. The
+warm-up runs a branch whatever its predicate, and its launches count
+where they ran, as every eager launch does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
@@ -50,6 +64,7 @@ import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._pytree import tree_leaves
 
+from ..ops._build import check, library
 from ..ops.cuda_proj import line_polytope_projection
 from ..ops.linalg import kkt_inverse
 from ..utils.tree import tree_map
@@ -73,6 +88,7 @@ def signature(tree) -> tuple:
 
 
 _SIDE_STREAMS: dict = {}
+_BRANCH_STREAMS: dict = {}
 _CAPTURE_LOCKS: dict = {}
 _SETUP = threading.Lock()
 
@@ -97,12 +113,104 @@ def _reserved(device) -> int:
     return torch.cuda.memory_stats(device).get("reserved_bytes.all.current", 0)
 
 
+_BRANCHES = threading.local()
+
+
+class _Branches:
+    """What `device_cond` hands the graph around it: the counted launches
+    (per `COUNTED` kernel) that its captured branches record, the graphs
+    captured for their IF nodes (whose pools hold the branches' memory),
+    and the predicates of the branches that ran outside a capture."""
+
+    def __init__(self):
+        self.launches = [0] * len(WRAPPERS)
+        self.graphs = []
+        self.preds = []
+
+
+@contextlib.contextmanager
+def _branches():
+    """Collects, on this thread, the `_Branches` of every `device_cond`
+    run or captured inside it."""
+    outer = getattr(_BRANCHES, "got", None)
+    _BRANCHES.got = got = _Branches()
+    try:
+        yield got
+    finally:
+        _BRANCHES.got = outer
+
+
+def branch_stream(device: torch.device) -> torch.cuda.Stream:
+    """The card's stream that `device_cond` captures its branches on."""
+    with _SETUP:
+        stream = _BRANCH_STREAMS.get(device.index)
+        if stream is None:
+            stream = _BRANCH_STREAMS[device.index] = torch.cuda.Stream(device)
+        return stream
+
+
+def _capture_if_node(pred: torch.Tensor, body) -> torch.cuda.CUDAGraph:
+    """Capture ``body()`` apart, into a graph of its own (kept, not
+    instantiated; its own memory pool), on the branch stream; then append
+    to the graph that the current stream is capturing an IF node on
+    ``pred`` that holds a copy of it (``csrc/graph_cond.cu``). Returns
+    the branch's graph, which must live as long as the enclosing one."""
+    branch = torch.cuda.CUDAGraph(keep_graph=True)
+    parent = torch.cuda.current_stream(pred.device)
+    with torch.cuda.stream(branch_stream(pred.device)):
+        branch.capture_begin(capture_error_mode="thread_local")
+        try:
+            body()
+        finally:
+            branch.capture_end()
+    check(library().bp_graph_add_if(parent.cuda_stream, pred.data_ptr(),
+                                    branch.raw_cuda_graph()), "graph_add_if")
+    return branch
+
+
+def device_cond(pred: torch.Tensor, body) -> None:
+    """``lax.cond(pred, body, no-op)`` for a ``body()`` that writes only
+    into tensors allocated before it (so none that it allocates outlives
+    it). ``pred`` is a 0-dim bool tensor on the body's device.
+
+    Under a CUDA graph's capture the body becomes an IF node of the graph
+    (`_capture_if_node`): a replay runs it only where ``pred`` holds, and
+    the host reads nothing. The counted launches that the capture records
+    are taken off the wrappers' counts and handed to the enclosing graph
+    (``branch_launches``), whose owner adds them once for each replay
+    whose ``pred`` held. There is no fallback: a capture that cannot add
+    the node raises.
+
+    Outside a capture (a graph's eager warm-up, the CPU) the body runs
+    every time, so where ``pred`` is false it must leave its outputs as
+    they were; the warm-up builds its kernels before the capture. Its
+    launches stay counted, since they ran; ``pred`` goes to the enclosing
+    graph, which tells from it the runs that its count of firings holds."""
+    got = getattr(_BRANCHES, "got", None)
+    if not (pred.is_cuda and torch.cuda.is_current_stream_capturing()):
+        body()
+        if got is not None:
+            got.preds.append(pred)
+        return
+    before = [w.launches for w in WRAPPERS]
+    try:
+        branch = _capture_if_node(pred, body)
+    finally:
+        for i, (w, b) in enumerate(zip(WRAPPERS, before)):
+            if got is not None:
+                got.launches[i] += w.launches - b
+            w.launches = b
+    if got is not None:
+        got.graphs.append(branch)
+
+
 class Graph:
     """One signature of ``fn(*inputs) -> outputs`` (trees of tensors),
     replayed from a CUDA graph on the card. ``launches`` (per `COUNTED`
-    kernel), ``capture_s`` and ``pool_bytes`` (the card memory the capture
-    reserved) describe the graph once captured; ``replays`` counts its
-    replays."""
+    kernel; ``branch_launches`` those of its captured `device_cond`
+    branches, once per replay whose predicate held), ``capture_s`` and
+    ``pool_bytes`` (the card memory the capture reserved) describe the
+    graph once captured; ``replays`` counts its replays."""
 
     def __init__(self, fn, inputs):
         self.fn = fn
@@ -112,6 +220,11 @@ class Graph:
         self.graph = None
         self.static_out = None
         self.launches = None
+        self.branch_launches = None
+        self.branches = []
+        # the warm-up's branch runs whose predicate held and did not, not
+        # yet set against a count of firings (`add_branch_launches`)
+        self._warm_fired = self._warm_idle = 0
         self.capture_s = None
         self.pool_bytes = None
         self.replays = 0
@@ -119,35 +232,50 @@ class Graph:
     def _copy_in(self, inputs):
         tree_map(lambda dst, src: dst.copy_(src), self.static_in, inputs)
 
-    def body(self, inputs):
-        """The eager run of what the graph holds, with its copy-in and
-        clone-out."""
-        self._copy_in(inputs)
-        return tree_map(torch.clone, self.fn(*self.static_in))
-
     def __call__(self, *inputs):
         with self.lock:
-            if self.device.type != "cuda":
-                return self.body(inputs)
-            with torch.cuda.device(self.device):
-                if self.graph is None:
-                    return self._warm_up_and_capture(inputs)
-                self._copy_in(inputs)
-                self.graph.replay()
-                with capture_lock(self.device):
-                    for wrapper, n in zip(WRAPPERS, self.launches):
-                        wrapper.launches += n
-                self.replays += 1
-                return tree_map(torch.clone, self.static_out)
+            self._copy_in(inputs)
+            return self._run()
 
-    def _warm_up_and_capture(self, inputs):
+    def _run(self):
+        """``fn`` on the static inputs, clones of its outputs: on the CPU
+        eagerly; on the card the first time warm-up and capture, then a
+        replay."""
+        if self.device.type != "cuda":
+            # nothing is captured: every launch counts where it runs
+            self.branch_launches = [0] * len(WRAPPERS)
+            return tree_map(torch.clone, self.fn(*self.static_in))
+        with torch.cuda.device(self.device):
+            if self.graph is None:
+                return self._warm_up_and_capture()
+            self.graph.replay()
+            with capture_lock(self.device):
+                for wrapper, n in zip(WRAPPERS, self.launches):
+                    wrapper.launches += n
+            self.replays += 1
+            return tree_map(torch.clone, self.static_out)
+
+    def add_branch_launches(self, fired: int) -> int:
+        """Count the launches of the graph's captured branches in a run of
+        it whose branches fired ``fired`` times: once for each firing in a
+        replay (the warm-up's branches ran eagerly and counted their own).
+        Returns the warm-up's branch runs whose predicate did not hold,
+        whose launches the counts hold beside those of the firings."""
+        with capture_lock(self.device):
+            replayed, idle = fired - self._warm_fired, self._warm_idle
+            self._warm_fired = self._warm_idle = 0
+            for wrapper, n in zip(WRAPPERS, self.branch_launches):
+                wrapper.launches += n * replayed
+        return idle
+
+    def _warm_up_and_capture(self):
         with capture_lock(self.device):
             current = torch.cuda.current_stream(self.device)
             side = side_stream(self.device)
-            self._copy_in(inputs)
             side.wait_stream(current)
             try:
-                with torch.cuda.stream(side):
+                # the branches run here whatever their predicates
+                with torch.cuda.stream(side), _branches() as warm:
                     first = self.fn(*self.static_in)
             finally:
                 current.wait_stream(side)
@@ -156,13 +284,17 @@ class Graph:
 
             before = [w.launches for w in WRAPPERS]
             torch.cuda.synchronize(self.device)
+            # which of them fired, read once the card is idle
+            held = int(torch.stack(warm.preds).sum()) if warm.preds else 0
+            self._warm_fired, self._warm_idle = held, len(warm.preds) - held
             # the capture empties the allocator's cache first; so does this,
             # for the reserved bytes to grow by the private pool alone
             torch.cuda.empty_cache()
             reserved, t0 = _reserved(self.device), time.perf_counter()
             graph = torch.cuda.CUDAGraph()
             try:
-                with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"), \
+                        _branches() as got:
                     static_out = self.fn(*self.static_in)
             finally:
                 self.launches = [w.launches - b for w, b in zip(WRAPPERS, before)]
@@ -172,6 +304,7 @@ class Graph:
             self.capture_s = time.perf_counter() - t0
             self.pool_bytes = _reserved(self.device) - reserved
             self.graph, self.static_out = graph, static_out
+            self.branch_launches, self.branches = got.launches, got.graphs
             return result
 
     def stats(self) -> dict:
@@ -180,8 +313,36 @@ class Graph:
         return {"batch": int(first.shape[0]) if first.dim() else None,
                 "dtype": str(floats[0]).split(".")[-1] if floats else None,
                 "launches": dict(zip(COUNTED, self.launches or (0, 0))),
+                "branch_launches": dict(zip(COUNTED, self.branch_launches or (0, 0))),
                 "capture_s": self.capture_s, "pool_bytes": self.pool_bytes,
                 "replays": self.replays}
+
+
+class StepGraph(Graph):
+    """One signature of a scan's body ``step(state, const) -> (state',
+    record)`` (trees of tensors), replayed once a step: the state stays in
+    the graph's static buffers (``static_in[0]``), since the graph ends by
+    copying ``state'`` into them; ``const`` is copied in once a scan. A
+    step is one replay and the clones of the record. The first step of the
+    first scan warms up and captures as `Graph` does (the warm-up is that
+    step)."""
+
+    def __init__(self, step, state, const):
+        def body(state, const):
+            new, record = step(state, const)
+            tree_map(lambda dst, src: dst.copy_(src), state, new)
+            return record
+
+        super().__init__(body, (state, const))
+
+    def scan(self, state, const, length: int):
+        """``length`` steps from ``state``: (the final state, the list of
+        records). Nothing between the first step and the last waits for
+        the card."""
+        with self.lock:
+            self._copy_in((state, const))
+            records = [self._run() for _ in range(length)]
+            return tree_map(torch.clone, self.static_in[0]), records
 
 
 _UNSET = {torch.empty, torch.empty_like, torch.empty_strided, torch.Tensor.new_empty,
@@ -232,8 +393,10 @@ def first_difference(fn, inputs):
     graph = torch.cuda.CUDAGraph()
     torch.cuda.synchronize(device)
     try:
+        # ``got`` keeps the pools of ``fn``'s IF nodes while it replays
         with torch.no_grad(), torch.cuda.graph(graph, stream=side_stream(device),
-                                                capture_error_mode="thread_local"):
+                                                capture_error_mode="thread_local"), \
+                _branches() as got:
             with replayed:
                 fn(*static_in)
     finally:

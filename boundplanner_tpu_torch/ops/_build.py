@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels of ``csrc/``.
+"""Build and load the hand-written CUDA kernels of ``csrc/`` (and the
+conditional graph node of ``csrc/graph_cond.cu``, `mpc.graph.device_cond`).
 
 ``nvcc`` compiles every ``csrc/*.cu`` (one ``nvcc`` per source, all
 started together) and links the objects into one shared library with a
@@ -37,6 +38,7 @@ _SIGNATURES = {
     "bp_chol_inverse_f32": (_P, _P, _I, _I, _P),
     "bp_chol_inverse_f64": (_P, _P, _I, _I, _P),
     "bp_line_polytope_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "bp_graph_add_if": (_P, _P, _P),
 }
 
 

@@ -39,7 +39,7 @@ from ..config import MPCParams
 from ..mpc.bound_mpc import FleetMPC
 from ..utils.device import checked_device
 from ..utils.tree import to_numpy, to_torch, tree_map
-from .batch import fleet_rollout
+from .batch import _rollout
 
 ENV_COORD = "BOUNDPLANNER_DIST_COORD"
 ENV_NPROCS = "BOUNDPLANNER_DIST_NPROCS"
@@ -153,7 +153,9 @@ def reduce_diagnostics(recs) -> dict:
 
 def distributed_rollout(carry_local, q0_local, obs_local, cfg: MPCParams, n_ticks: int,
                         device=None, dtype=torch.float32):
-    """Closed-loop rollout of this rank's scenes on its device.
+    """Closed-loop rollout of this rank's scenes on its device, with no
+    escalation retry whatever ``cfg.esc_lanes`` says (JAX's rollout here is
+    ``vmap`` of ``closed_loop_rollout``).
 
     Inputs are this rank's scenes only (numpy or tensors; the leading axis
     is the local count, equal on every rank). ``device`` defaults to the
@@ -164,7 +166,7 @@ def distributed_rollout(carry_local, q0_local, obs_local, cfg: MPCParams, n_tick
     device = local_device() if device is None else checked_device(device)
     carry, q0, obs = global_from_local((carry_local, q0_local, obs_local), device, dtype)
     model = FleetMPC(cfg, device=device, dtype=dtype)
-    final, recs = fleet_rollout(carry, q0, obs, model, n_ticks)
+    final, recs = _rollout(carry, q0, obs, model, n_ticks, escalate=False)
     diag = reduce_diagnostics(recs)
     return local_from_global(final), local_from_global(recs), diag
 

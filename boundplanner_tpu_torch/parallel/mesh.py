@@ -4,8 +4,9 @@
 Scenes never communicate, so the mesh is a list of devices along one
 scenario axis: every batched tree is split on its leading axis into
 contiguous equal shards, one per device, and each device rolls its shard
-out with `batch.fleet_rollout`. The three fleet diagnostics are reduced
-over the gathered records at the end.
+out as `batch.closed_loop_rollout` does, without the escalation retry
+(JAX's rollout here is ``vmap`` of ``closed_loop_rollout``). The three
+fleet diagnostics are reduced over the gathered records at the end.
 
 The shards roll out one after another. The tick is bound by the host
 issuing its kernels (an H100 is busy ~5 % of a tick), and its
@@ -22,7 +23,7 @@ from ..config import MPCParams
 from ..mpc.bound_mpc import FleetMPC
 from ..utils.device import DEFAULT_DEVICE, checked_device
 from ..utils.tree import tree_map
-from .batch import _concat, fleet_rollout
+from .batch import _concat, _rollout
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> list:
@@ -65,13 +66,15 @@ def sharded_rollout(carry, q0, obs, cfg: MPCParams, n_ticks: int, mesh: list):
 
     ``carry``/``q0``/``obs`` hold tensors with a leading scene axis
     divisible by the mesh size, in the dtype of the rollout. Each device
-    builds its own `FleetMPC` and rolls its shard out in turn. Returns
+    builds its own `FleetMPC` and rolls its shard out in turn, with no
+    escalation retry whatever ``cfg.esc_lanes`` says, as in JAX. Returns
     (final carries, per-tick records, diagnostics): the shards
     concatenated in device order on ``mesh[0]``, the diagnostics over the
     whole fleet."""
     shards = zip(shard_batch(carry, mesh), shard_batch(q0, mesh), shard_batch(obs, mesh))
     gather = lambda tree: tree_map(lambda t: t.to(mesh[0]), tree)
-    out = [gather(fleet_rollout(c, q, o, FleetMPC(cfg, device=dev, dtype=q0.dtype), n_ticks))
+    out = [gather(_rollout(c, q, o, FleetMPC(cfg, device=dev, dtype=q0.dtype), n_ticks,
+                           escalate=False))
            for (c, q, o), dev in zip(shards, mesh)]
     final = _concat([f for f, _ in out])
     recs = _concat([r for _, r in out])

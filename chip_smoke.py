@@ -28,7 +28,7 @@ threaded): each run's plans/s, kept draws, broker counters and launches,
 and sound corridors (asserted); then the threaded, phase-synchronous and
 process-pool builders at their phases' sizes, each eagerly
 (``graph=False``) and then through the planner's graphs. The seventh only builds, then runs phase 5b
-below and the single arm's route comparison of phase 14 (~4 min); the
+below and the single arm's route comparison of phase 14 (~5 min); the
 last only builds, then runs phase 7b.
 
 Phases (each asserts; any failure exits non-zero):
@@ -60,16 +60,25 @@ Phases (each asserts; any failure exits non-zero):
    card at batch 128 and at batch 1; then the same fleet's quality with a
    kernel's route swapped (kernel A
    again, its plain version, kernel A in f64, kernel B's plain version);
-   then (5b, ``graph``) the first eager tick of four configurations at
-   128 scenes and of ``MPCParams()`` in f64 at batch 1 under
-   ``torch.cuda.set_sync_debug_mode("error")``, and the graph route
-   (``FleetMPC``'s default on the card: one CUDA graph per configuration
-   and input signature) against the eager route (``graph=False``): the
-   main path in turns (eager, graph, eager, graph) with solves/s,
-   launches and records equal bit for bit (else the first differing tick
-   and op), each route's ``torch.profiler`` trace of two ticks (kernel
-   names, device time, busy share), the batch-1 latency in f32 and f64,
-   every capture's seconds and memory pool;
+   then (5b, ``graph``) under ``torch.cuda.set_sync_debug_mode("error")``
+   the first eager tick of four configurations at 128 scenes and of
+   ``MPCParams()`` in f64 at batch 1, one eager step of the rollout's
+   scan body with 4 escalation lanes, and a warm 128 x 3 rollout of perf
+   and of 4 escalation lanes through the step graph up to its stacked
+   records; then the closed loop's three routes on the card, eager
+   (``graph=False``), the tick's graph with the plant step eager and the
+   retry behind a host read (``tick``, the route before the step graph),
+   and the step graph (``fleet_rollout``'s default: one replay a control
+   period holding the plant step, the tick and the retry under an IF
+   node), in turns (tick, step, eager, step, tick) on perf 128 x 20 and
+   on 4 escalation lanes 128 x 10: solves/s, launches, fired ticks,
+   records and final carry equal bit for bit (else where a route parts
+   from eager), each graph route's ``torch.profiler`` trace of two ticks
+   (device time, busy share, kernel A counted by its grid's width: the
+   retry's 48 launches at width 4 once per fired tick, none on a tick
+   that fires nothing), the batch-1 latency in f32 and f64 of each graph
+   route (with ``--only-graph`` the eager route's profile and latencies
+   too), every capture's seconds and memory pool;
    then the solver configurations (``solver_configs``: the chunked Grams,
    the factored link rows, the dense tail, ADMM, the frozen KKT factor,
    the paired warm start, 4 escalation lanes) on the same fleet for 10
@@ -79,23 +88,29 @@ Phases (each asserts; any failure exits non-zero):
    batch 64 at n = 3, 4, 8, 12, 16, 20, 24, and (1, 3, 3), (1024, 3, 3),
    (1280, 4, 4);
 7. the planner in f64: one fleet draw (seed 7, draw 1) planned by
-   ``parallel.fleet.plan_scene`` on the CPU and on the card, same carry;
+   ``parallel.fleet.plan_scene`` on the CPU (in a child process, beside
+   the card's plan) and on the card, same carry;
    7b. (``planner_graph``, also alone: ``--only-planner-graph``) the
    planner's graph route (the default on the card: every planner device
    call replays the process's CUDA graph of its key, static arguments and
    input signature) against its eager route (``graph=False``): draw 1 in
    f32 eagerly (each key's first call under
    ``set_sync_debug_mode("error")``), through the graphs cold and warm,
-   equal bit for bit with the same launches; the eager plan and a warm
-   graph plan under ``torch.profiler`` (device time, busy share, kernel A
-   and B by their device names); each key at width 2 and the "spath"
+   equal bit for bit with the same launches; a warm graph plan (and, with
+   ``--only-planner-graph``, the eager plan) under ``torch.profiler``
+   (device time, busy share, kernel A and B by their device names); each
+   key at width 2 and the "spath"
    search, graph = eager bit for bit with the same launches; the
    unbrokered "proj" call through its graph; ``build_fleet_threaded``
-   (phase 9's size) eagerly, then cold (every batched call equal to the
-   eager function on the same batch) and warm through the graphs;
-   ``build_fleet_sync`` (phase 17's size) in both routes, equal bit for
-   bit; plans/s; graphs, capture seconds and pool bytes per key. Every
-   later phase that plans runs the graph route;
+   (phase 9's size) through the graphs from the single plan's (one
+   thread captures the width-2 batches while the other replays; the first
+   two batched calls of each key and width equal to the eager function
+   on the same batch); plans/s; graphs, capture seconds and pool bytes
+   per key. With ``--only-planner-graph`` the threaded build starts from
+   no graph, then runs warm, every batched call of the cold one is held
+   to the eager function, and the eager threaded build and both routes
+   of ``build_fleet_sync`` (phase 17's size) run too, equal bit for bit.
+   Every later phase that plans runs the graph route;
 8. the batched shortest path (``planner.device_search``) on the card: 128
    random roadmaps padded to 64 junctions against the host Dijkstra;
 9. the planner path: ``parallel.fleet.build_fleet_threaded`` plans a
@@ -116,12 +131,14 @@ Phases (each asserts; any failure exits non-zero):
     launches per rank; then ``dryrun_multichip`` over ``make_mesh()``;
 13. the single-arm runtime (also alone: ``--only-runtime``): the
     tests/test_e2e.py scene planned on the card in f64, then ``MPCNode``
-    with ``MPCParams()`` in f64 (the first 3 ticks also on the CPU) toward
-    the path end, with kernel A's (1, 136, 136) and (96, 4, 4) f64 rows;
+    with ``MPCParams()`` in f64 (the first 3 ticks also on the CPU, in a
+    child process beside the runtime phases) toward the path end, with
+    kernel A's (1, 136, 136) and (96, 4, 4) f64 rows;
 14. the same plan through ``MPCNode`` with ``perf_mpc_params()`` in f32,
     the 10 Hz loop, with ``t_comp``/``t_loop`` percentiles; then
-    (``runtime_routes``) both nodes for a few ticks with each route,
-    eager and graph, their ``t_comp``/``t_loop`` p50/p95;
+    (``runtime_routes``) both nodes for a few ticks on the graph route
+    and, with ``--only-graph`` or ``--only-runtime``, the eager route,
+    their ``t_comp``/``t_loop`` p50/p95;
 15. IK on the card against the CPU, and a checkpoint saved and resumed on
     the card;
 16. the edges: the error-bound families (``mpc/bounds.py``) and the rest of
@@ -173,7 +190,15 @@ corrections that each warp's slowest problem runs
 (``chain_warp_max_mean``, ``chain_warp_max_max``), replayed on the host by
 ``ops/proj_chain.py`` (numpy, without the kernel's FMA contraction).
 
-Earlier lines print JSON with the numbers; the line before the last is the
+The whole script runs phase 5's main path and route comparison (5b's
+three routes) first after the kernels. Two phases only wait on child
+processes, and run in a background thread beside phases that assert on
+no time: phase 10's process-pool build beside phase 4, 5b's sync check,
+the worst tick and the swapped routes; phase 12's ranks beside phases 7
+and 8. The times those phases report are taken beside that work.
+
+Each phase's seconds print as a ``phase_seconds`` line. Earlier lines
+print JSON with the numbers; the line before the last is the
 kernels' summary, the last line ``{"ok": true, "device": {...}}``. No JAX
 is imported. ``--out DIR`` also writes the results and the compiler's
 report there.
@@ -241,12 +266,19 @@ SOLVER_CONFIGS = {
     "esc4": dict(esc_lanes=4),
 }
 SOLVER_FLOORED = ("chunked", "link", "dense_tail", "esc4")
-# the graph route against the eager route: the main path in turns, the
-# profile's ticks, the single arm's ticks per route (the f64 eager tick
-# takes 3-5 s), the configurations whose first eager tick runs under the
-# sync check, and the kernels' device names in the profile
-GRAPH_AB = ("eager", "graph", "eager", "graph")
+# the closed loop's routes (eager, the tick's graph, the step graph) in
+# turns (one eager turn, for time) on each of GRAPH_CONFIGS
+# (configuration fields, ticks, the eager route's profiled ticks: esc4's
+# eager tick takes ~27 s under the profiler, so 1), the other profiles'
+# ticks, the single arm's ticks per route (the f64 eager tick takes 3-5
+# s), the configurations whose first eager tick runs under the sync
+# check, the step graph's ticks under it, and the kernels' device names
+# in the profile
+GRAPH_ROUTES = ("eager", "tick", "step")
+GRAPH_AB = ("tick", "step", "eager", "step", "tick")
+GRAPH_CONFIGS = {"perf": ({}, N_TICKS, 2), "esc4": (dict(esc_lanes=4), SOLVER_TICKS, 1)}
 GRAPH_PROFILE_TICKS = 2
+SYNC_SCAN_TICKS = 3
 GRAPH_NODE_TICKS = {"float32": 20, "float64": 8}
 SYNC_CONFIGS = {"perf": {}, "esc4": dict(esc_lanes=4), "kkt2": dict(kkt_every=2),
                 "admm": dict(struct_tail=False, qp_solver="admm")}
@@ -272,6 +304,20 @@ B_OPS_ROW, B_OPS_PHI, B_OPS_POINT, B_OPS_SETUP_ROW, B_OPS_SETUP, B_OPS_DIST = 17
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+PHASE_SECONDS = {}
+
+
+def timed(name, fn, *args):
+    """``fn(*args)``, its seconds printed (``phase_seconds``) and kept in
+    PHASE_SECONDS under ``name``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+        emit({"phase": "phase_seconds", "name": name, "seconds": PHASE_SECONDS[name]})
 
 
 def cuda_ms(fn, reps):
@@ -724,7 +770,7 @@ def phase_main(payload, cfg, dev):
     from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
     from boundplanner_tpu_torch.ops.cuda_proj import line_polytope_projection
     from boundplanner_tpu_torch.ops.linalg import kkt_inverse
-    from boundplanner_tpu_torch.parallel.batch import chunked_rollout
+    from boundplanner_tpu_torch.parallel.batch import chunked_rollout, fleet_rollout
     from boundplanner_tpu_torch.parallel.fleet_cache import to_numpy, to_torch, tree_map
 
     carry, q0, obs = to_torch((payload["carry"], payload["q0"], payload["obs"]),
@@ -758,7 +804,8 @@ def phase_main(payload, cfg, dev):
     max_viol = float(recs["viol"].amax())
     mean_phi = float(recs["phi"][:, -1].mean())
 
-    lat = batch1_latency(tree_map(lambda t: t[:1], (carry, q0, obs)), model)
+    one = tree_map(lambda t: t[:1], (carry, q0, obs))
+    lat = batch1_latency(lambda: fleet_rollout(*one, model, 1))
     result = {
         "phase": "main_path",
         "metric": "boundmpc_solves_per_s_per_chip",
@@ -835,37 +882,72 @@ def first_tick_inputs(carry, q0, obs, model):
 
 
 def phase_sync_free(payload, dev):
-    """The first eager tick of each SYNC_CONFIGS configuration (CHUNK
-    scenes, f32) and of ``MPCParams()`` (scene 0, f64) under
-    ``torch.cuda.set_sync_debug_mode("error")``: nothing inside the tick
-    waits for the card, so the tick can be captured."""
+    """Nothing inside a control period waits for the card, so each can be
+    captured: under ``torch.cuda.set_sync_debug_mode("error")`` the first
+    eager tick of each SYNC_CONFIGS configuration (CHUNK scenes, f32) and
+    of ``MPCParams()`` (scene 0, f64); one eager step of the rollout's
+    scan body at ``esc_lanes=4`` (`parallel.batch._rollout_step`, its
+    retry run outside a capture, as the warm-up runs it: the sub-batch's
+    gather, sort and scatter); and a warm rollout of the perf and the
+    ``esc_lanes=4`` configuration through the step graph (CHUNK x
+    SYNC_SCAN_TICKS), from its start until its records are stacked (the
+    count of retried ticks is read after that)."""
     import dataclasses
     import numpy as np
     import torch
     from boundplanner_tpu_torch.config import MPCParams, perf_mpc_params
     from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
+    from boundplanner_tpu_torch.parallel import batch
     from boundplanner_tpu_torch.parallel.fleet_cache import to_torch, tree_map
+
+    def fleet(scenes, dtype):
+        return to_torch(tree_map(lambda a: np.asarray(a)[:scenes],
+                                 (payload["carry"], payload["q0"], payload["obs"])), dev, dtype)
+
+    def sync_checked(fn):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
 
     cases = [(name, dataclasses.replace(perf_mpc_params(), **fields), CHUNK, torch.float32)
              for name, fields in SYNC_CONFIGS.items()]
     cases.append(("default_f64_batch1", MPCParams(), 1, torch.float64))
     finite = {}
     for name, cfg, scenes, dtype in cases:
-        carry, q0, obs = to_torch(tree_map(lambda a: np.asarray(a)[:scenes],
-                                           (payload["carry"], payload["q0"], payload["obs"])),
-                                  dev, dtype)
+        carry, q0, obs = fleet(scenes, dtype)
         model = FleetMPC(cfg, device=dev, dtype=dtype, graph=False)
         inputs = first_tick_inputs(carry, q0, obs, model)
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            _, out = model.tick(*inputs)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+        _, out = sync_checked(lambda: model.tick(*inputs))
         finite[name] = bool(torch.isfinite(out["q"]).all())
-    row = {"phase": "graph_sync_free", "finite": finite}
+    esc4 = dataclasses.replace(perf_mpc_params(), esc_lanes=4)
+    carry, q0, obs = fleet(CHUNK, torch.float32)
+    model = FleetMPC(esc4, device=dev, dtype=torch.float32, graph=False)
+    state = batch._initial_state(carry, q0)
+    _, rec = sync_checked(lambda: batch._rollout_step(state, obs, esc4, model.st, True))
+    finite["esc4_rollout_step"] = bool(torch.isfinite(rec["q"]).all())
+    scans = {}
+    for name, cfg in (("perf", perf_mpc_params()), ("esc4", esc4)):
+        model = FleetMPC(cfg, device=dev, dtype=torch.float32)
+        batch.fleet_rollout(carry, q0, obs, model, SYNC_SCAN_TICKS)   # warm-up, capture
+
+        def scan():
+            state = batch._initial_state(carry, q0)
+            runner = model.step_graph(batch._rollout_step, state, obs, cfg.esc_lanes > 0)
+            final, recs = runner.scan(state, obs, SYNC_SCAN_TICKS)
+            return final, batch._stack(recs), runner
+
+        final, recs, runner = sync_checked(scan)
+        scans[name] = {"ticks": SYNC_SCAN_TICKS, "replays": runner.replays,
+                       "fired": int(final[-1]),
+                       "finite": bool(torch.isfinite(recs["q"]).all())}
+    row = {"phase": "graph_sync_free", "finite": finite, "step_graph_scans": scans}
     emit(row)
     assert all(finite.values()), finite
+    assert all(s["finite"] and s["replays"] == 2 * SYNC_SCAN_TICKS - 1
+               for s in scans.values()), scans
     return row
 
 
@@ -879,32 +961,45 @@ def union_us(spans):
     return total
 
 
-def profile_ticks(model, inputs, ticks):
-    """``ticks`` calls of ``model.tick`` on ``inputs`` (replays, once the
-    model has captured them) under ``torch.profiler``: the device events,
-    each kernel's launches by its device name, device time per tick, and
-    the card's busy share (the union of device events over the span of all
-    events)."""
+def profile_rollout(fn, ticks):
+    """``fn()`` (a rollout of ``ticks`` ticks) under ``torch.profiler``
+    (host and card): device events, device time per tick, the card's busy
+    share (the union of device events over the span of all events), each
+    kernel's launches by its device name, and kernel A's launches by
+    their grid's width (one block per matrix: the batch of the matrices
+    it factors), from the exported trace."""
+    import tempfile
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    model.tick(*inputs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(ticks):
-            model.tick(*inputs)
+        fn()
         torch.cuda.synchronize()
-    events = list(prof.events())
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy = union_us([(e.time_range.start, e.time_range.end) for e in device])
-    lo = min(e.time_range.start for e in events)
-    hi = max(e.time_range.end for e in events)
+    events = prof.profiler.kineto_results.events()
+    spans = [(e.start_ns(), e.end_ns()) for e in events]
+    device = [e for e in events if e.device_type() == DeviceType.CUDA]
+    busy = union_us([(e.start_ns(), e.end_ns()) for e in device])
+    window = max(hi for _, hi in spans) - min(lo for lo, _ in spans)
+    names = [e.name() for e in device]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    widths = {}
+    for e in trace.get("traceEvents", []):
+        if e.get("cat") == "kernel" and KERNEL_DEVICE_NAMES["chol_inverse"] in e.get("name", ""):
+            grid = e.get("args", {}).get("grid")
+            w = str(grid[0]) if grid else "unknown"
+            widths[w] = widths.get(w, 0) + 1
     return {"ticks": ticks, "device_events": len(device),
-            "device_ms_per_tick": 1e-3 * busy / ticks, "window_ms": 1e-3 * (hi - lo),
-            "busy_share": busy / (hi - lo),
-            "kernel_launches": {k: sum(name in e.name for e in device)
-                                for k, name in KERNEL_DEVICE_NAMES.items()}}
+            "device_ms_per_tick": 1e-6 * busy / ticks, "window_ms": 1e-6 * window,
+            "busy_share": busy / window,
+            "kernel_launches": {k: sum(name in n for n in names)
+                                for k, name in KERNEL_DEVICE_NAMES.items()},
+            "chol_inverse_by_batch": widths}
 
 
 def tree_equal(a, b):
@@ -915,36 +1010,70 @@ def tree_equal(a, b):
     return len(la) == len(lb) and all(np.array_equal(x, y) for x, y in zip(la, lb))
 
 
-def locate_difference(carry, q0, obs, cfg, dev):
-    """The eager route and the graph route stepped side by side from the
-    fleet's start (every graph tick a replay): at the first tick whose
-    outputs or carry differ, the first op that differs on that tick's
-    inputs (`mpc.graph.first_difference`)."""
+def tick_graph_rollout(carry, q0, obs, model, n_ticks):
+    """The closed loop as it ran before the step graph: a Python loop over
+    ``model.tick`` (the tick's CUDA graph) with the plant step eager
+    between replays, and the escalation retry's host check and k-wide
+    tick through its own graph (``model.run``). Returns (final carry,
+    records), as ``fleet_rollout``."""
+    import dataclasses
+    from boundplanner_tpu_torch.mpc.bound_mpc import mpc_tick
+    from boundplanner_tpu_torch.parallel import batch
+
+    cfg = model.cfg
+    esc_cfg = dataclasses.replace(cfg, sqp_iters=cfg.esc_sqp_iters,
+                                  qp_iters=cfg.esc_qp_iters, esc_lanes=0)
+    state, recs = batch._initial_state(carry, q0), []
+    for _ in range(n_ticks):
+        carry, q, dq, ddq, jerk, qf, streak, _ = state
+        meas = batch._plant_measurement(q, dq, ddq, jerk, qf, model.st.chain)
+        carry_n, out = model.tick(carry, meas, obs)
+        if cfg.esc_lanes > 0:
+            carry_n, out = batch._escalate_failed_lanes(
+                carry, meas, obs, carry_n, out, cfg,
+                lambda c, m, o: model.run(mpc_tick, esc_cfg, c, m, o),
+                eligible=streak < cfg.esc_streak_limit)
+        state, rec = batch._advance(state, carry_n, out, meas, cfg.dt)
+        recs.append(rec)
+    return state[0], batch._stack(recs)
+
+
+def locate_difference(carry, q0, obs, cfg, dev, route):
+    """Where a graph route parts from the eager route. ``tick``: both
+    stepped side by side from the fleet's start (every graph tick a
+    replay); at the first tick whose outputs or carry differ, the first op
+    that differs on that tick's inputs (`mpc.graph.first_difference`).
+    ``step``: the first op of the rollout's first step that differs
+    between an eager run and a replay of its capture."""
     import torch
     from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC, mpc_tick
     from boundplanner_tpu_torch.mpc.graph import first_difference
-    from boundplanner_tpu_torch.parallel.batch import _plant_measurement
-    from boundplanner_tpu_torch.utils.integration import integrate_jerk_step
+    from boundplanner_tpu_torch.parallel import batch
     from boundplanner_tpu_torch.utils.tree import to_numpy
 
     eager = FleetMPC(cfg, device=dev, dtype=torch.float32, graph=False)
+    if route == "step":
+        op = first_difference(
+            lambda s, o: batch._rollout_step(s, o, cfg, eager.st, cfg.esc_lanes > 0),
+            (batch._initial_state(carry, q0), obs))
+        return {"route": route, "tick": 0, "first_differing_op": op}
     graph = FleetMPC(cfg, device=dev, dtype=torch.float32)
     graph.tick(*first_tick_inputs(carry, q0, obs, graph))   # the capture
     zeros = torch.zeros_like(q0)
     q, dq, ddq, jerk, qf = q0, zeros, zeros, zeros, q0
     for tick in range(N_TICKS):
-        meas = _plant_measurement(q, dq, ddq, jerk, qf, eager.st.chain)
+        meas = batch._plant_measurement(q, dq, ddq, jerk, qf, eager.st.chain)
         res_e = eager.tick(carry, meas, obs)
         res_g = graph.tick(carry, meas, obs)
         if not tree_equal(to_numpy(res_e), to_numpy(res_g)):
             op = first_difference(lambda c, m, o: mpc_tick(c, m, o, cfg, eager.st),
                                   (carry, meas, obs))
-            return {"tick": tick, "first_differing_op": op}
+            return {"route": route, "tick": tick, "first_differing_op": op}
         carry, out = res_e
-        q_n, dq, ddq = integrate_jerk_step(q, dq, ddq, out["dddq"][:, 0], out["dddq"][:, 1],
-                                           cfg.dt)
+        q_n, dq, ddq = batch.integrate_jerk_step(q, dq, ddq, out["dddq"][:, 0],
+                                                 out["dddq"][:, 1], cfg.dt)
         q, jerk, qf = q_n, out["dddq"][:, 1], out["q"][:, -1]
-    return {"tick": None, "first_differing_op": None}
+    return {"route": route, "tick": None, "first_differing_op": None}
 
 
 def graph_stats(models):
@@ -954,93 +1083,185 @@ def graph_stats(models):
             for label, model in models.items() for runner in model.graphs.values()]
 
 
-def batch1_latency(one, model):
-    """Milliseconds of one tick of ``fleet_rollout`` at batch 1 (host clock
-    to the result on the host), LATENCY_REPS times after a warm-up."""
+def batch1_latency(roll):
+    """Milliseconds of ``roll()``, a one-tick rollout of one scene (host
+    clock to the result on the host), LATENCY_REPS times after a warm-up."""
     import numpy as np
-    from boundplanner_tpu_torch.parallel.batch import fleet_rollout
 
-    fleet_rollout(*one, model, 1)
+    roll()
     lats = []
     for _ in range(LATENCY_REPS):
         t1 = time.perf_counter()
-        _, r1 = fleet_rollout(*one, model, 1)
+        _, r1 = roll()
         float(r1["phi"][0, -1])
         lats.append(1e3 * (time.perf_counter() - t1))
     return {**{f"p{q}": float(np.percentile(lats, q)) for q in (50, 95, 99)},
-            "max": float(np.max(lats))}
+            "max": float(np.max(lats)), "reps": LATENCY_REPS}
 
 
-def phase_graph(payload, cfg, dev):
-    """The graph route against the eager route (``graph=False``) on the
-    main path: both warmed up (the graph's capture), then 128 x 20 through
-    ``chunked_rollout`` in turns (GRAPH_AB): solves/s, launches (240 / 20
-    each, asserted), records and final carries equal bit for bit (else the
-    first differing tick and op, and the phase fails); each route's
-    profile over GRAPH_PROFILE_TICKS ticks (kernel A's and B's device
-    names 12 and 1 times a tick, asserted; busy share, device time); the
-    batch-1 tick latency in f32 and f64 of each route; every capture's
-    seconds and pool bytes."""
+def retry_counts(fn):
+    """``fn()`` with the escalation's counts from 0: (its result, the
+    ticks whose retry fired, the runs of the retry where none did: a cold
+    step graph's warm-up runs it whatever its predicate)."""
+    from boundplanner_tpu_torch.parallel import batch
+
+    esc = batch._escalate_failed_lanes
+    esc.retries = esc.idle_runs = 0
+    res = fn()
+    return res, esc.retries, esc.idle_runs
+
+
+def graph_routes(model_of, ticks):
+    """Each GRAPH_ROUTES route's rollout of ``ticks`` ticks on its model
+    (``model_of(route)``), as a function of (carry, q0, obs)."""
+    from boundplanner_tpu_torch.parallel.batch import fleet_rollout
+
+    return {"eager": lambda c, q, o: fleet_rollout(c, q, o, model_of("eager"), ticks),
+            "tick": lambda c, q, o: tick_graph_rollout(c, q, o, model_of("tick"), ticks),
+            "step": lambda c, q, o: fleet_rollout(c, q, o, model_of("step"), ticks)}
+
+
+def phase_graph(payload, cfg, dev, baselines=True):
+    """The three routes of the closed loop on the card: eager
+    (``graph=False``), the tick's graph with the plant step eager between
+    replays and the retry behind a host check (``tick``, `tick_graph_rollout`,
+    the route before the step graph), and the step graph (``step``,
+    ``fleet_rollout``'s default on the card: one replay a control period
+    that holds the plant step, the tick and the retry under an IF node).
+    For each of GRAPH_CONFIGS on the cached fleet (CHUNK scenes, f32):
+    both graph routes warmed up by a 1-tick rollout (their captures), then
+    every route in turns (GRAPH_AB): solves/s, launches (the tick's on
+    every tick, the retry's on every fired tick, asserted), fired ticks
+    (the step graph's count on the card, the others' host checks: equal,
+    asserted), records and final carries equal bit for bit (else where a
+    graph route parts from eager, and the phase fails); each route's
+    profile of GRAPH_PROFILE_TICKS ticks (the configuration's own count
+    for the eager route; kernel A at the tick's batch 12 times a tick and
+    at the retry's width 48 times a fired tick, kernel B once a tick and
+    once a fired tick, and a warm route's retry nowhere else, asserted;
+    busy share, device time); for ``esc4`` also the step route on the
+    scenes whose perf ticks all
+    succeeded, where a tick that fires nothing must show no retry kernel;
+    the batch-1 tick latency in f32 and f64 of each graph route (perf);
+    every capture's seconds and pool bytes. The eager route's profiles and
+    batch-1 latencies (~120 s of eager ticks, timing an unchanged
+    baseline) run only with ``baselines``."""
+    import dataclasses
     import numpy as np
     import torch
     from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
-    from boundplanner_tpu_torch.parallel.batch import chunked_rollout
+    from boundplanner_tpu_torch.parallel import batch
     from boundplanner_tpu_torch.parallel.fleet_cache import to_numpy, to_torch, tree_map
 
-    carry, q0, obs = to_torch((payload["carry"], payload["q0"], payload["obs"]),
-                              dev, torch.float32)
-    batch = q0.shape[0]
-    models = {route: FleetMPC(cfg, device=dev, dtype=torch.float32,
-                              graph=None if route == "graph" else False)
-              for route in ("eager", "graph")}
-    for model in models.values():
-        chunked_rollout(carry, q0, obs, model, N_TICKS, chunk=CHUNK)
-    runs = []
-    for route in GRAPH_AB:
-        res, secs, launches = counted(
-            lambda: chunked_rollout(carry, q0, obs, models[route], N_TICKS, chunk=CHUNK))
-        runs.append({"route": route, "wall_s": secs, "solves_per_s": batch * N_TICKS / secs,
-                     "launches": launches, "out": to_numpy(res)})
-    equal = all(tree_equal(r["out"], runs[0]["out"]) for r in runs[1:])
-    want = {"chol_inverse": cfg.sqp_iters * cfg.qp_iters * N_TICKS * (batch // CHUNK),
-            "line_polytope": N_TICKS * (batch // CHUNK)}
-    recs = runs[1]["out"][1]
-    quality = {"success_rate": float(recs["success"].mean()),
-               "max_viol": float(recs["viol"].max()),
-               "mean_phi_final": float(recs["phi"][:, -1].mean())}
-    diff = None if equal else locate_difference(*tree_map(lambda t: t[:CHUNK], (carry, q0, obs)),
-                                                cfg, dev)
-    chunk_inputs = tree_map(lambda t: t[:CHUNK], (carry, q0, obs))
-    profiles = {route: profile_ticks(model, first_tick_inputs(*chunk_inputs, model),
-                                     GRAPH_PROFILE_TICKS)
-                for route, model in models.items()}
+    fleet = to_torch(tree_map(lambda a: np.asarray(a)[:CHUNK],
+                              (payload["carry"], payload["q0"], payload["obs"])),
+                     dev, torch.float32)
+    rows, models_all, clean = {}, {}, None
+    for name, (fields, ticks, eager_prof_ticks) in GRAPH_CONFIGS.items():
+        ccfg = dataclasses.replace(cfg, **fields)
+        models = {route: FleetMPC(ccfg, device=dev, dtype=torch.float32,
+                                  graph=False if route == "eager" else None)
+                  for route in GRAPH_ROUTES}
+        roll = graph_routes(models.get, ticks)
+        warm = {}
+        for route in ("tick", "step"):
+            t0 = time.perf_counter()
+            graph_routes(models.get, 1)[route](*fleet)   # the captures
+            torch.cuda.synchronize()
+            warm[route] = time.perf_counter() - t0
+        runs = []
+        for route in GRAPH_AB:
+            (res, secs, launches), fired, idle = retry_counts(
+                lambda: counted(lambda: roll[route](*fleet)))
+            runs.append({"route": route, "wall_s": secs, "solves_per_s": CHUNK * ticks / secs,
+                         "launches": launches, "fired": fired, "idle_retry_runs": idle,
+                         "want": solver_launches(ccfg, ticks, fired + idle),
+                         "out": to_numpy(res)})
+        equal = all(tree_equal(r["out"], runs[0]["out"]) for r in runs[1:])
+        recs = runs[0]["out"][1]
+        if name == "perf":
+            clean = np.flatnonzero(recs["success"].all(axis=1))
+        diff = None
+        if not equal:
+            eager_out = next(r["out"] for r in runs if r["route"] == "eager")
+            diff = [locate_difference(*fleet, ccfg, dev, route) for route in ("tick", "step")
+                    if not all(tree_equal(r["out"], eager_out)
+                               for r in runs if r["route"] == route)]
+        profiles = {}
+        for route in GRAPH_ROUTES if baselines else ("tick", "step"):
+            n = eager_prof_ticks if route == "eager" else GRAPH_PROFILE_TICKS
+            prof_roll = graph_routes(models.get, n)[route]
+            t0 = time.perf_counter()
+            profiles[route], fired, idle = retry_counts(
+                lambda: profile_rollout(lambda: prof_roll(*fleet), n))
+            profiles[route].update(fired=fired, idle_retry_runs=idle,
+                                   seconds=time.perf_counter() - t0)
+        if ccfg.esc_lanes and clean is not None:
+            sub = to_torch(tree_map(lambda a: np.asarray(a)[clean],
+                                    (payload["carry"], payload["q0"], payload["obs"])),
+                           dev, torch.float32)
+            models["step_clean"] = FleetMPC(ccfg, device=dev, dtype=torch.float32)
+            clean_roll = lambda: batch.fleet_rollout(*sub, models["step_clean"],
+                                                     GRAPH_PROFILE_TICKS)
+            clean_roll()
+            t0 = time.perf_counter()
+            profiles["step_clean"], fired, idle = retry_counts(
+                lambda: profile_rollout(clean_roll, GRAPH_PROFILE_TICKS))
+            profiles["step_clean"].update(fired=fired, idle_retry_runs=idle, scenes=len(clean),
+                                          seconds=time.perf_counter() - t0)
+        rows[name] = {
+            "ticks": ticks, "warm_s": warm,
+            "runs": [{k: v for k, v in r.items() if k != "out"} for r in runs],
+            "equal_bit_for_bit": equal, "difference": diff,
+            "success_rate": float(recs["success"].mean()),
+            "max_viol": float(recs["viol"].max()),
+            "mean_phi_final": float(recs["phi"][:, -1].mean()), "profiles": profiles}
+        models_all.update({f"{name}_{route}": m for route, m in models.items()})
     latency = {}
     for dtype in (torch.float32, torch.float64):
         one = to_torch(tree_map(lambda a: np.asarray(a)[:1],
                                 (payload["carry"], payload["q0"], payload["obs"])), dev, dtype)
-        name = str(dtype).split(".")[-1]
-        for route in ("eager", "graph"):
-            model = FleetMPC(cfg, device=dev, dtype=dtype,
-                             graph=None if route == "graph" else False)
-            latency[f"{name}_{route}"] = batch1_latency(one, model)
-            models[f"batch1_{name}_{route}"] = model
-    row = {"phase": "graph", "runs": [{k: v for k, v in r.items() if k != "out"} for r in runs],
-           "equal_bit_for_bit": equal, "difference": diff, "launches_want": want, **quality,
-           "profiles": profiles, "tick_latency_ms": latency, "graphs": graph_stats(models)}
+        dname = str(dtype).split(".")[-1]
+        models = {route: FleetMPC(cfg, device=dev, dtype=dtype,
+                                  graph=False if route == "eager" else None)
+                  for route in GRAPH_ROUTES}
+        roll = graph_routes(models.get, 1)
+        for route in GRAPH_ROUTES if baselines else ("tick", "step"):
+            latency[f"{dname}_{route}"] = batch1_latency(lambda: roll[route](*one))
+        models_all.update({f"batch1_{dname}_{route}": m for route, m in models.items()})
+    row = {"phase": "graph", **rows, "tick_latency_ms": latency,
+           "graphs": graph_stats(models_all)}
     emit(row)
-    assert all(r["launches"] == want for r in runs), [r["launches"] for r in runs]
-    assert equal, f"graph route differs from the eager route: {diff}"
-    per_tick = {"chol_inverse": cfg.sqp_iters * cfg.qp_iters, "line_polytope": 1}
-    for route, prof in profiles.items():
-        got = prof["kernel_launches"]
-        assert got == {k: GRAPH_PROFILE_TICKS * n for k, n in per_tick.items()}, (route, got)
+    for name, r in rows.items():
+        ccfg = dataclasses.replace(cfg, **GRAPH_CONFIGS[name][0])
+        assert all(run["launches"] == run["want"] for run in r["runs"]), (name, r["runs"])
+        assert len({run["fired"] for run in r["runs"]}) == 1, (name, r["runs"])
+        # warm: the retry ran where it fired and nowhere else
+        assert not any(run["idle_retry_runs"] for run in r["runs"]), (name, r["runs"])
+        assert r["equal_bit_for_bit"], f"{name}: a graph route differs from eager: {r['difference']}"
+        for route, prof in r["profiles"].items():
+            ticks, fired = prof["ticks"], prof["fired"]
+            assert prof["idle_retry_runs"] == 0, (name, route, prof)
+            want = solver_launches(ccfg, ticks, fired)
+            width = CHUNK if route != "step_clean" else prof["scenes"]
+            by_batch = {str(width): ticks * ccfg.sqp_iters * ccfg.qp_iters}
+            if fired:
+                by_batch[str(min(ccfg.esc_lanes, width))] = (
+                    fired * ccfg.esc_sqp_iters * ccfg.esc_qp_iters)
+            assert prof["kernel_launches"] == want, (name, route, prof["kernel_launches"], want)
+            assert prof["chol_inverse_by_batch"] == by_batch, (name, route, prof, by_batch)
+        if ccfg.esc_lanes:
+            clean_prof = r["profiles"]["step_clean"]
+            assert clean_prof["fired"] < clean_prof["ticks"], clean_prof
+    assert rows["perf"]["runs"][0]["launches"] == solver_launches(cfg, N_TICKS, 0)
     return row
 
 
-def phase_runtime_routes(dev, plan):
+def phase_runtime_routes(dev, plan, baselines=True):
     """The single arm with each route: ``MPCNode`` on the e2e plan for
     GRAPH_NODE_TICKS ticks, f32 ``perf_mpc_params()`` and f64
-    ``MPCParams()``, eager (``graph=False``) and graph: ``t_comp`` and
+    ``MPCParams()``, graph and (with ``baselines``, ~50 s of eager ticks)
+    eager (``graph=False``): ``t_comp`` and
     ``t_loop`` p50/p95 over the ticks after the first (the graph's first
     tick runs the warm-up and the capture: its ``t_comp`` is reported
     apart), and the launches per step (asserted)."""
@@ -1056,7 +1277,7 @@ def phase_runtime_routes(dev, plan):
              (perf_mpc_params().sqp_iters * perf_mpc_params().qp_iters, 1)),
             ("float64", MPCParams(), torch.float64,
              (MPCParams().sqp_iters * MPCParams().qp_iters + PROJ_IPM_ITERS, 0))):
-        for route in ("eager", "graph"):
+        for route in ("eager", "graph") if baselines else ("graph",):
             node = MPCNode(q0, params=cfg, device=dev, dtype=dtype,
                            graph=None if route == "graph" else False)
             node.update_reference(*args)
@@ -1090,7 +1311,9 @@ def solver_launches(cfg, ticks, fired):
 
 def phase_solver_configs(payload, dev, main_res):
     """Each of SOLVER_CONFIGS on the cached fleet at full width in f32 for
-    SOLVER_TICKS ticks (chunk 128): launches (asserted), finite records,
+    SOLVER_TICKS ticks (chunk 128), each model cold: launches (asserted;
+    the retry's also where the warm-up ran it on a tick that fired
+    nothing), finite records,
     quality beside the main path's, wall time; then 2 scenes x 2 ticks of
     it in f64 on the card against the CPU (`phase_small_f64`)."""
     import dataclasses
@@ -1112,14 +1335,13 @@ def phase_solver_configs(payload, dev, main_res):
         torch.cuda.synchronize()
         kkt_inverse.launches = 0
         line_polytope_projection.launches = 0
-        batch._escalate_failed_lanes.retries = 0
         t0 = time.perf_counter()
-        final, recs = batch.chunked_rollout(carry, q0, obs, model, SOLVER_TICKS, chunk=CHUNK)
+        (final, recs), fired, idle = retry_counts(
+            lambda: batch.chunked_rollout(carry, q0, obs, model, SOLVER_TICKS, chunk=CHUNK))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"chol_inverse": kkt_inverse.launches,
                     "line_polytope": line_polytope_projection.launches}
-        fired = batch._escalate_failed_lanes.retries
         finite = (all(bool(torch.isfinite(v.float()).all()) for v in recs.values())
                   and all(bool(torch.isfinite(t.float()).all()) for t in final
                           if isinstance(t, torch.Tensor)))
@@ -1130,8 +1352,9 @@ def phase_solver_configs(payload, dev, main_res):
                                       else success - main_res["success_rate"]),
                "max_viol": float(recs["viol"].amax()),
                "mean_phi_final": float(recs["phi"][:, -1].mean()), "wall_s": wall,
-               "launches": launches, "want": solver_launches(cfg, SOLVER_TICKS * chunks, fired),
-               "escalated_ticks": fired, "finite": finite}
+               "launches": launches,
+               "want": solver_launches(cfg, SOLVER_TICKS * chunks, fired + idle),
+               "escalated_ticks": fired, "idle_retry_runs": idle, "finite": finite}
         emit(row)
         assert finite, f"{name}: non-finite records or carry"
         assert launches == row["want"], (name, launches, row["want"])
@@ -1165,21 +1388,24 @@ def plan_draw(draw, cfg, device, plan_dtype, dtype, broker=None, graph=None):
 
 
 def phase_planner_f64(cfg, dev):
-    """Fleet draw 1 planned in f64 on the CPU and on the card (exact
-    projection IPM, kernel A in f64): the same via count, and vias, sets
-    and every carry leaf within 1e-9."""
+    """Fleet draw 1 planned in f64 on the CPU (in a child process,
+    `CpuChild`) and on the card (exact projection IPM, kernel A in f64):
+    the same via count, and vias, sets and every carry leaf within 1e-9."""
     import numpy as np
     import torch
     from boundplanner_tpu_torch.utils.tree import tree_map
 
-    out, secs = {}, {}
-    for where in ("cpu", dev):
+    cpu = CpuChild("the CPU plan", CPU_PLAN_CHILD, cfg)
+    try:
         t0 = time.perf_counter()
-        planned = plan_draw(1, cfg, where, torch.float64, np.float64)
-        secs[str(where)] = time.perf_counter() - t0
-        assert planned is not None, f"draw 1 failed to plan on {where}"
-        out[str(where)] = planned[0]
-    a, b = out["cpu"], out[str(dev)]
+        planned = plan_draw(1, cfg, dev, torch.float64, np.float64)
+        secs_card = time.perf_counter() - t0
+        a, secs_cpu = cpu.result()
+    finally:
+        cpu.close()
+    assert a is not None, "draw 1 failed to plan on the CPU"
+    assert planned is not None, f"draw 1 failed to plan on {dev}"
+    b = planned[0]
     errs = []
     tree_map(lambda x, y: errs.append(float(np.max(np.abs(np.asarray(x, float)
                                                           - np.asarray(y, float))))), a, b)
@@ -1190,7 +1416,7 @@ def phase_planner_f64(cfg, dev):
            "max_abs_err_vias": float(np.abs(a.path.p - b.path.p).max()),
            "max_abs_err_sets": float(max(np.abs(a.path.a_set - b.path.a_set).max(),
                                          np.abs(a.path.b_set - b.path.b_set).max())),
-           "max_abs_err_carry": err, "seconds_cpu": secs["cpu"], "seconds_card": secs[str(dev)]}
+           "max_abs_err_carry": err, "seconds_cpu": secs_cpu, "seconds_card": secs_card}
     emit(row)
     assert row["vias_cpu"] == row["vias_card"], row
     assert err <= 1e-9, f"f64 plan on the card disagrees with the CPU: {err}"
@@ -1258,21 +1484,26 @@ def first_key_difference(eager, graph):
     return None
 
 
-def calls_equal_eager(calls):
-    """Each recorded call (`KeyCalls`) run again eagerly on its inputs:
-    {"calls", "widths" per key, "differing": [(index, key, width)]} (a
-    differing call returned other values than the eager function on the
-    same batch)."""
+def calls_equal_eager(calls, per_width=None):
+    """The recorded calls (`KeyCalls`), or the first ``per_width`` of each
+    key and batch width (a cold graph's capture call, then replays), run
+    again eagerly on their inputs: {"calls", "widths" per key, "checked",
+    "differing": [(index, key, width)]} (a differing call returned other
+    values than the eager function on the same batch)."""
     from boundplanner_tpu_torch.utils.tree import to_numpy
 
-    widths, differing = {}, []
+    widths, differing, checked = {}, [], 0
     for i, (key, fn, inputs, out) in enumerate(calls.calls):
         width = int(inputs[0].shape[0])
         widths.setdefault(key, {}).setdefault(width, 0)
         widths[key][width] += 1
+        if per_width is not None and widths[key][width] > per_width:
+            continue
+        checked += 1
         if not tree_equal(to_numpy(out), to_numpy(fn(*inputs))):
             differing.append((i, key, width))
-    return {"calls": len(calls.calls), "widths": widths, "differing": differing}
+    return {"calls": len(calls.calls), "widths": widths, "checked": checked,
+            "differing": differing}
 
 
 def profile_run(fn):
@@ -1381,7 +1612,7 @@ def same_draws_equal(run, ref):
             "equal": all(tree_equal(scene(run, d), scene(ref, d)) for d in common)}
 
 
-def phase_planner_graph(cfg, dev):
+def phase_planner_graph(cfg, dev, baselines=True):
     """The planner's graph route (on the card every planner device call
     replays the process's graph of its key, static arguments and input
     signature) against its eager route (``graph=False``), in one process:
@@ -1404,7 +1635,21 @@ def phase_planner_graph(cfg, dev):
       thread timing, and a row may depend on its batch's width);
     - ``build_fleet_sync`` at ``sync_fleet``'s size (its barrier batches
       deterministically) eagerly and through the graphs: equal bit for bit;
-    - plans/s of each run; graphs, capture seconds, pool bytes per key."""
+    - plans/s of each run; graphs, capture seconds, pool bytes per key.
+
+    Without ``baselines`` the eager route's builds and profile are left
+    out (~170 s of eager planning): the eager plan under the profiler, the
+    eager threaded build (timing only) and the eager sync build (its
+    batched calls are the threaded build's keys at the same widths, which
+    the cold run holds to the eager function, and `phase_sync_fleet`
+    holds the sync build's corridors); the cold threaded build starts
+    from the single plan's graphs (it captures the width-2 batches and the
+    keys that plan did not reach while the other thread replays; with
+    ``baselines`` the cache is emptied first), and its calls are held to
+    the eager function two per key and width (every call with
+    ``baselines``); the warm threaded and the sync build through the
+    graphs run only with ``baselines`` (`phase_plan_fleet` and
+    `phase_sync_fleet` run the same builds warm)."""
     import numpy as np
     import torch
     from boundplanner_tpu_torch.parallel import broker as broker_mod
@@ -1422,7 +1667,8 @@ def phase_planner_graph(cfg, dev):
         cold, cold_s, cold_l = counted(lambda: one_plan(None))
     warm, warm_s, warm_l = counted(lambda: one_plan(None))
     prof, profiled = {}, {}
-    for route, graph in (("graph", None), ("eager", False)):
+    profile_routes = (("graph", None), ("eager", False)) if baselines else (("graph", None),)
+    for route, graph in profile_routes:
         (profiled[route], prof[route]), _, launches = counted(
             lambda: profile_run(lambda: one_plan(graph)))
         prof[route]["launches"] = launches
@@ -1443,10 +1689,11 @@ def phase_planner_graph(cfg, dev):
     common = dict(seed=PLAN_SEED, n_obstacles=PLAN_OBSTACLES, dtype=np.float32, device=dev,
                   plan_dtype=torch.float32)
     builds = {}
-    for route in ("threaded_eager", "threaded_graph_cold", "threaded_graph_warm",
-                  "sync_eager", "sync_graph"):
+    routes = (("threaded_eager", "threaded_graph_cold", "threaded_graph_warm", "sync_eager",
+               "sync_graph") if baselines else ("threaded_graph_cold",))
+    for route in routes:
         graph = False if route.endswith("eager") else None
-        if route == "threaded_graph_cold":
+        if route == "threaded_graph_cold" and baselines:
             planner_mod._GRAPHS.clear()
         recorder = KeyCalls(broker_mod)
         if route.startswith("threaded"):
@@ -1465,11 +1712,14 @@ def phase_planner_graph(cfg, dev):
                          "batches_run": brk.batches_run, "calls_served": brk.calls_served,
                          "out": (carry, obs)}
         if recorder.calls:
-            builds[route]["calls_equal_eager"] = calls_equal_eager(recorder)
+            builds[route]["calls_equal_eager"] = calls_equal_eager(
+                recorder, None if baselines else 2)
     threaded_same = {r: same_draws_equal(builds[r], builds["threaded_eager"])
-                     for r in ("threaded_graph_cold", "threaded_graph_warm")}
-    sync_equal = (tree_equal(builds["sync_graph"]["out"], builds["sync_eager"]["out"])
-                  and builds["sync_graph"]["launches"] == builds["sync_eager"]["launches"])
+                     for r in ("threaded_graph_cold", "threaded_graph_warm") if baselines}
+    sync_equal = None        # without the eager sync build: not compared
+    if baselines:
+        sync_equal = (tree_equal(builds["sync_graph"]["out"], builds["sync_eager"]["out"])
+                      and builds["sync_graph"]["launches"] == builds["sync_eager"]["launches"])
     cold_calls_check = builds["threaded_graph_cold"]["calls_equal_eager"]
     builder_stats = planner_mod.graph_stats()
 
@@ -1495,7 +1745,7 @@ def phase_planner_graph(cfg, dev):
         assert r["equal_first"] and r["equal_replay"], (key, r)
         assert r["launches_replay"] == r["launches_eager"], (key, r)
     assert not cold_calls_check["differing"], cold_calls_check
-    assert sync_equal, "the phase-synchronous build differs between routes"
+    assert sync_equal is not False, "the phase-synchronous build differs between routes"
     assert sum(st["replays"] for st in single_stats) > 0, single_stats
     return row
 
@@ -1770,20 +2020,25 @@ def phase_device_search(dev):
     return row
 
 
-def phase_fleet_mp(cfg, dev):
+def fleet_mp_build(cfg, dev):
     """The process-pool builder on the card: MP_SCENES scenes (seed 7, 3
     boxes + floor, f32) planned by the builder's default count of spawned
-    workers on a card (`fleet.CARD_PROCS`) in blocks of
-    MP_BLOCK draws, each worker planning on the card with its own context.
-    Both kernels must have run in the workers, and every corridor must be
-    sound."""
+    workers on a card (`fleet.CARD_PROCS`) in blocks of MP_BLOCK draws,
+    each worker planning on the card with its own context (run in a
+    `Background` thread: it only waits on its workers)."""
     import numpy as np
     import torch
     from boundplanner_tpu_torch.parallel.fleet import build_fleet_mp
 
-    carry, q0, obs, info = build_fleet_mp(
+    return build_fleet_mp(
         MP_SCENES, cfg, n_obstacles=PLAN_OBSTACLES, seed=PLAN_SEED, dtype=np.float32,
         block=MP_BLOCK, device=dev, plan_dtype=torch.float32, timeout=900)
+
+
+def phase_fleet_mp(built):
+    """The process-pool build (`fleet_mp_build`): both kernels must have
+    run in the workers, and every corridor must be sound."""
+    carry, q0, obs, info = built
     sound = [corridor_ok(carry, obs, i) for i in range(MP_SCENES)]
     workers = info["launches"]["per_worker"]
     row = {"phase": "fleet_mp", "scenes": MP_SCENES, "procs": info["n_procs"], "block": MP_BLOCK,
@@ -1800,10 +2055,24 @@ def phase_fleet_mp(cfg, dev):
     return (carry, q0, obs), row
 
 
-def phase_multi_gpu(payload, cfg, dev):
-    """The multi-device tier on one card: the launcher starts 2 ranks of
+def dryrun_ranks():
+    """The launcher's DRYRUN_RANKS ranks of ``python -m
+    boundplanner_tpu_torch.parallel.dryrun`` over gloo, all on this card
+    (run in a `Background` thread: it only waits on the ranks): each
+    rank's output and the launch's wall seconds."""
+    from boundplanner_tpu_torch.parallel import distributed as dist
+
+    t0 = time.perf_counter()
+    results = dist.launch([sys.executable, "-m", "boundplanner_tpu_torch.parallel.dryrun",
+                           "--ticks", str(DRYRUN_TICKS), "--backend", "gloo"],
+                          nproc=DRYRUN_RANKS, timeout=600)
+    return results, time.perf_counter() - t0
+
+
+def phase_multi_gpu(payload, cfg, dev, launched):
+    """The multi-device tier on one card: the launcher's 2 ranks of
     ``python -m boundplanner_tpu_torch.parallel.dryrun`` over gloo (both on
-    this card); each rolls out its 64 of the cached fleet's 128 scenes for
+    this card, `dryrun_ranks`, ``launched``); each rolls out its 64 of the cached fleet's 128 scenes for
     10 ticks and asserts the dry-run bars on the global diagnostics, which
     must be the same on both ranks. Each rank's phi per tick and final q
     must equal one process's ``chunked_rollout`` at chunk 64 by value, and
@@ -1813,16 +2082,11 @@ def phase_multi_gpu(payload, cfg, dev):
     import numpy as np
     import torch
     from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
-    from boundplanner_tpu_torch.parallel import distributed as dist
     from boundplanner_tpu_torch.parallel.batch import chunked_rollout
     from boundplanner_tpu_torch.parallel.dryrun import dryrun_multichip
     from boundplanner_tpu_torch.utils.tree import to_torch
 
-    t0 = time.perf_counter()
-    results = dist.launch([sys.executable, "-m", "boundplanner_tpu_torch.parallel.dryrun",
-                           "--ticks", str(DRYRUN_TICKS), "--backend", "gloo"],
-                          nproc=DRYRUN_RANKS, timeout=600)
-    launch_s = time.perf_counter() - t0
+    results, launch_s = launched.result()
     ranks = sorted((json.loads(next(ln for ln in out.splitlines()
                                      if ln.startswith("DRYRUN_RESULT "))[len("DRYRUN_RESULT "):])
                     for _, out in results), key=lambda r: r["rank"])
@@ -1927,13 +2191,129 @@ def node_summary(phase, node, goal, launches, want, stop):
             "launches_per_step": {"chol_inverse": want[0], "line_polytope": want[1]}}
 
 
+# the f64 node's first ticks on the CPU (`phase_runtime_f64`), in a child
+# process: its ~20 s ticks overlap the card's runtime phases
+CPU_NODE_CHILD = """
+import pickle, sys
+import numpy as np
+import torch
+from boundplanner_tpu_torch.mpc import MPCNode
+
+torch.set_num_threads(1)
+with open(sys.argv[1], "rb") as f:
+    q0, args, ticks = pickle.load(f)
+node = MPCNode(q0, device="cpu")
+node.update_reference(*args)
+states = []
+for _ in range(ticks):
+    node.step()
+    states.append({k: np.array(getattr(node, k)) for k in ("q", "dq", "p_lie")})
+with open(sys.argv[2], "wb") as f:
+    pickle.dump(states, f)
+"""
+
+
+# draw 1 planned in f64 on the CPU (`phase_planner_f64`), in a child
+# process: it overlaps the same plan on the card
+CPU_PLAN_CHILD = """
+import pickle, sys, time
+import numpy as np
+import torch
+import chip_smoke
+
+with open(sys.argv[1], "rb") as f:
+    cfg = pickle.load(f)
+t0 = time.perf_counter()
+planned = chip_smoke.plan_draw(1, cfg, "cpu", torch.float64, np.float64)
+secs = time.perf_counter() - t0
+with open(sys.argv[2], "wb") as f:
+    pickle.dump((None if planned is None else planned[0], secs), f)
+"""
+
+
+class CpuChild:
+    """A CPU computation in a child process started at once (this
+    directory's Python, no card): ``code`` reads the pickle of ``args``
+    from the file named by its first argument and pickles its result to
+    the second; `result` waits for it and returns that result, `close`
+    stops it. ``CpuChild("the CPU node", CPU_NODE_CHILD, (q0, args,
+    ticks))`` is ``MPCNode(q0)`` (``MPCParams()``, f64) on the plan's
+    ``args`` for ``ticks`` ticks: each tick's q, dq and p_lie."""
+
+    def __init__(self, name, code, args):
+        import pickle
+        import tempfile
+
+        self.name = name
+        self.tmp = tempfile.TemporaryDirectory()
+        src = os.path.join(self.tmp.name, "in.pkl")
+        self.out = os.path.join(self.tmp.name, "out.pkl")
+        with open(src, "wb") as f:
+            pickle.dump(args, f)
+        self.log = open(os.path.join(self.tmp.name, "log.txt"), "w")
+        self.proc = subprocess.Popen([sys.executable, "-c", code, src, self.out],
+                                     stdout=self.log, stderr=subprocess.STDOUT)
+
+    def result(self):
+        import pickle
+
+        rc = self.proc.wait()
+        self.log.close()
+        if rc:
+            with open(self.log.name) as f:
+                raise RuntimeError(f"{self.name} exited with {rc}: {f.read()[-3000:]}")
+        with open(self.out, "rb") as f:
+            return pickle.load(f)
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        self.tmp.cleanup()
+
+
+class Background:
+    """``fn(*args)`` in a thread started at once, for work that waits on
+    child processes (a process pool, the dry run's ranks) and touches no
+    card in this process; `result` waits for it and returns its value (or
+    raises its exception), its wall seconds kept in PHASE_SECONDS under
+    ``name``."""
+
+    def __init__(self, name, fn, *args):
+        import threading
+
+        self.name, self.value, self.error = name, None, None
+        self.t0 = time.perf_counter()
+        self.thread = threading.Thread(target=self._run, args=(fn, args), daemon=True)
+        self.thread.start()
+
+    def _run(self, fn, args):
+        try:
+            self.value = fn(*args)
+        except BaseException as e:   # re-raised in the main thread by `result`
+            self.error = e
+        PHASE_SECONDS[self.name] = time.perf_counter() - self.t0
+
+    def result(self):
+        self.thread.join()
+        emit({"phase": "phase_seconds", "name": self.name, "background": True,
+              "seconds": PHASE_SECONDS[self.name]})
+        if self.error is not None:
+            raise self.error
+        return self.value
+
+
+NODE_STATE = ("q", "dq", "p_lie")
+
+
 def phase_runtime_f64(dev, rng, plan):
     """The reference's configuration: ``MPCNode(q0)`` with ``MPCParams()``
-    in f64 on the card. The first RUNTIME_COMPARE_TICKS ticks also run on
-    the CPU (q and p_lie within 1e-6, dq 1e-5); then on toward the path
-    end (there, the JAX e2e test's goal and fail bars). Every
-    step launches kernel A sqp x qp + 25 times (the SQP's IPM, then the
-    f64 link sets' projection IPM) and kernel B never."""
+    in f64 on the card toward the path end (there, the JAX e2e test's
+    goal and fail bars). Every step launches kernel A sqp x qp + 25 times
+    (the SQP's IPM, then the f64 link sets' projection IPM) and kernel B
+    never. Returns the row and the node's state after each of its first
+    RUNTIME_COMPARE_TICKS ticks (`check_card_vs_cpu`)."""
     import numpy as np
     import torch
     from boundplanner_tpu_torch.config import MPCParams
@@ -1943,24 +2323,20 @@ def phase_runtime_f64(dev, rng, plan):
     cfg = MPCParams()
     want = (cfg.sqp_iters * cfg.qp_iters + PROJ_IPM_ITERS, 0)
     card = MPCNode(q0, device=dev)
-    cpu = MPCNode(q0, device="cpu")
     assert card.mpc.cfg == cfg and card.dtype == torch.float64
-    for node in (card, cpu):
-        node.update_reference(*args)
+    card.update_reference(*args)
     launches = [0, 0]
-    errs = []
+    states = []
     for _ in range(RUNTIME_COMPARE_TICKS):
         got = step_counted(card)
         assert got == want, f"launches per step {got}, expected {want}"
         launches[0] += got[0]
         launches[1] += got[1]
-        cpu.step()
-        errs.append({k: float(np.abs(getattr(card, k) - getattr(cpu, k)).max())
-                     for k in ("q", "dq", "p_lie")})
+        states.append({k: np.array(getattr(card, k)) for k in NODE_STATE})
         node_invariants(card, obs_orig)
     stop = drive_to_end(card, obs_orig, want, RUNTIME_F64_CAP_S, launches)
     row = {**node_summary("runtime_f64", card, goal, launches, want, stop),
-           "card_vs_cpu_ticks": RUNTIME_COMPARE_TICKS, "card_vs_cpu_max_abs_err": errs,
+           "card_vs_cpu_ticks": RUNTIME_COMPARE_TICKS,
            "kernel_a": kernel_a_row("runtime_f64_kkt",
                                     torch.from_numpy(spd_batch(rng, 1, dtype="float64")).to(dev),
                                     100),
@@ -1968,6 +2344,22 @@ def phase_runtime_f64(dev, rng, plan):
                "runtime_f64_projection",
                torch.from_numpy(spd_batch(rng, 96, n=4, m=17, dtype="float64")).to(dev), 100)}
     emit(row)
+    if row["stopped_by"] == "path_end":
+        assert row["goal_err_m"] < 0.02, f"final EE error {row['goal_err_m']}"
+        assert row["fails"] <= 2, f"{row['fails']} failed ticks"
+    return row, states
+
+
+def check_card_vs_cpu(row, card_states, cpu):
+    """The f64 node's first ticks on the card (``card_states``) against the
+    same node on the CPU (`CpuChild`): q and p_lie within 1e-6, dq 1e-5;
+    the errors go into ``row``."""
+    import numpy as np
+
+    errs = [{k: float(np.abs(c[k] - p[k]).max()) for k in NODE_STATE}
+            for c, p in zip(card_states, cpu.result(), strict=True)]
+    row["card_vs_cpu_max_abs_err"] = errs
+    emit({"phase": "runtime_f64_card_vs_cpu", "ticks": len(errs), "max_abs_err": errs})
     # the dense IPM amplifies f64 rounding ~1e3-fold a tick in this closed
     # loop: two exact factorization routes on the CPU drift as far apart
     # (dq 2e-9, 8e-7, 4e-6 over 3 ticks; `python -m
@@ -1976,10 +2368,6 @@ def phase_runtime_f64(dev, rng, plan):
     for tick, err in enumerate(errs, 1):
         assert err["q"] < 1e-6 and err["p_lie"] < 1e-6 and err["dq"] < 1e-5, \
             f"f64 node on the card disagrees with the CPU at tick {tick}: {err}"
-    if row["stopped_by"] == "path_end":
-        assert row["goal_err_m"] < 0.02, f"final EE error {row['goal_err_m']}"
-        assert row["fails"] <= 2, f"{row['fails']} failed ticks"
-    return row
 
 
 def phase_runtime_f32(dev, plan):
@@ -2048,17 +2436,23 @@ def phase_runtime_parts(dev, plan, node):
     return row
 
 
-def run_runtime(dev):
-    """The single-arm runtime phases on one f64 plan of the e2e scene."""
+def run_runtime(dev, baselines=True):
+    """The single-arm runtime phases on one f64 plan of the e2e scene
+    (``baselines``: `phase_runtime_routes`'s eager rows)."""
     import numpy as np
     from boundplanner_tpu_torch.mpc.e2e import plan_e2e
 
     plan = plan_e2e(dev)
     emit({"phase": "runtime_plan", **plan[4], "vias": len(plan[1][0])})
-    rt64 = phase_runtime_f64(dev, np.random.default_rng(5), plan)
-    rt32, node32 = phase_runtime_f32(dev, plan)
-    parts = phase_runtime_parts(dev, plan, node32)
-    rt32["routes"] = phase_runtime_routes(dev, plan)
+    cpu = CpuChild("the CPU node", CPU_NODE_CHILD, (plan[0], plan[1], RUNTIME_COMPARE_TICKS))
+    try:
+        rt64, card_states = phase_runtime_f64(dev, np.random.default_rng(5), plan)
+        rt32, node32 = phase_runtime_f32(dev, plan)
+        parts = phase_runtime_parts(dev, plan, node32)
+        rt32["routes"] = phase_runtime_routes(dev, plan, baselines)
+        check_card_vs_cpu(rt64, card_states, cpu)
+    finally:
+        cpu.close()
     return rt64, rt32, parts, plan
 
 
@@ -2476,8 +2870,10 @@ def phase_gates_probe(payload, cfg, dev):
     """The escalation probe: scenes 29, 43, 54 together for
     GATE_PROBE_TICKS ticks in f32, without escalation (240 / 20 launches)
     and with 4 lanes at 6 x 8 (240 + 48 a fired tick / 20 + 1 a fired
-    tick; the retry is min(4, 3) = 3 lanes wide: kernel A at (3, 136,
-    136), kernel B at P = 288). Per-scene rows are reported."""
+    tick, and as much again if the step graph's warm-up ran the retry on
+    a tick that fired nothing; the retry is min(4, 3) = 3 lanes wide:
+    kernel A at (3, 136, 136), kernel B at P = 288). Per-scene rows are
+    reported."""
     import dataclasses
     import torch
     from boundplanner_tpu_torch import gates
@@ -2489,7 +2885,8 @@ def phase_gates_probe(payload, cfg, dev):
     for arm in rows:
         arm_cfg = dataclasses.replace(cfg, esc_lanes=arm["esc_lanes"],
                                       esc_sqp_iters=arm["esc"][0], esc_qp_iters=arm["esc"][1])
-        arm["want"] = solver_launches(arm_cfg, GATE_PROBE_TICKS, arm["escalated_ticks"])
+        arm["want"] = solver_launches(arm_cfg, GATE_PROBE_TICKS,
+                                      arm["escalated_ticks"] + arm["idle_retry_runs"])
     row = {"phase": "gates_probe", "scenes": list(GATE_PROBE_SCENES),
            "ticks": GATE_PROBE_TICKS, "arms": rows, "wall_s": secs, "launches": launches,
            "kernel_a_shapes": sorted(seen.a), "kernel_b_problems": sorted(seen.b)}
@@ -2577,6 +2974,16 @@ def phase_kernel_a_probe(dev):
     return kernel_a_row("kernel_a_probe", torch.from_numpy(k).to(dev), 200)
 
 
+def graph_launches(row, kernel):
+    """A kernel's launches in each route's first timed run of each graph
+    configuration (the kernels' summary line), with the run's fired
+    ticks."""
+    return {f"{name}_{run['route']}": {"launches": run["launches"][kernel],
+                                       "fired": run["fired"]}
+            for name in GRAPH_CONFIGS
+            for run in {r["route"]: r for r in reversed(row[name]["runs"])}.values()}
+
+
 def gate_launches(rows, kernel):
     """A kernel's launches in each gate run (the kernels' summary line)."""
     return {"launches_gates_long": rows["long"]["launches"][kernel],
@@ -2651,10 +3058,10 @@ def main(argv):
 
         cfg = perf_mpc_params()
         payload = load(FLEET)
-        rows = {"sync_free": phase_sync_free(payload, dev),
-                "graph": phase_graph(payload, cfg, dev)}
-        plan = plan_e2e(dev)
-        rows["runtime_routes"] = phase_runtime_routes(dev, plan)
+        rows = {"sync_free": timed("graph_sync_free", phase_sync_free, payload, dev),
+                "graph": timed("graph", phase_graph, payload, cfg, dev)}
+        plan = timed("runtime_plan", plan_e2e, dev)
+        rows["runtime_routes"] = timed("runtime_routes", phase_runtime_routes, dev, plan)
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
             with open(os.path.join(out_dir, "graph.json"), "w") as f:
@@ -2709,32 +3116,43 @@ def main(argv):
             with open(os.path.join(out_dir, "solver_configs.json"), "w") as f:
                 json.dump({"card": card, "solver_configs": solver}, f, indent=1)
         return 0
-    a = phase_kernel_a(rng, dev)
-    a_shard = phase_kernel_a_shard(dev)
-    a_retry = phase_kernel_a_retry(dev)
-    b_all = phase_kernel_b(rng, dev, real)
+    a = timed("kernel_a", phase_kernel_a, rng, dev)
+    a_shard = timed("kernel_a_shard", phase_kernel_a_shard, dev)
+    a_retry = timed("kernel_a_retry", phase_kernel_a_retry, dev)
+    b_all = timed("kernel_b", phase_kernel_b, rng, dev, real)
     b = b_all[0]
-    phase_small_f64(payload, cfg, dev)
-    main_res, main_recs = phase_main(payload, cfg, dev)
-    sync_free = phase_sync_free(payload, dev)
-    graph_row = phase_graph(payload, cfg, dev)
-    phase_worst_tick(payload, cfg, dev, out_dir)
-    routes = phase_main_routes(payload, cfg, dev)
-    solver = phase_solver_configs(payload, dev, main_res)
-    a_plan = phase_kernel_a_planner(rng, dev)
-    phase_planner_f64(cfg, dev)
-    planner_graph = phase_planner_graph(cfg, dev)
-    spath = phase_device_search(dev)
-    threaded, plan = phase_plan_fleet(cfg, dev, payload)
-    fleet, mp_row = phase_fleet_mp(cfg, dev)
-    rollout = phase_planned_rollout(fleet, cfg, dev)
-    multi = phase_multi_gpu(payload, cfg, dev)
-    rt64, rt32, parts, e2e_plan = run_runtime(dev)
-    a_probe = phase_kernel_a_probe(dev)
-    gate_rows = run_gates(payload, cfg, dev, main_recs, rt32, e2e_plan, out_dir)
-    edges = phase_edges(dev, card, main_res, rt64, rt32)
-    sync = phase_sync_fleet(cfg, dev, plan, threaded)
-    examples = phase_examples(dev)
+    main_res, main_recs = timed("main_path", phase_main, payload, cfg, dev)
+    graph_row = timed("graph", phase_graph, payload, cfg, dev, False)
+    # the process-pool build's workers plan beside the phases that time
+    # nothing they assert (their seconds and walls are taken beside it)
+    mp_build = Background("fleet_mp_build", fleet_mp_build, cfg, dev)
+    try:
+        timed("small_f64", phase_small_f64, payload, cfg, dev)
+        sync_free = timed("graph_sync_free", phase_sync_free, payload, dev)
+        timed("worst_tick", phase_worst_tick, payload, cfg, dev, out_dir)
+        routes = timed("main_path_routes", phase_main_routes, payload, cfg, dev)
+    finally:
+        mp_build.thread.join()
+    solver = timed("solver_configs", phase_solver_configs, payload, dev, main_res)
+    a_plan = timed("kernel_a_planner", phase_kernel_a_planner, rng, dev)
+    # the dry run's ranks roll out beside the f64 plans and the shortest path
+    ranks = Background("multi_gpu_ranks", dryrun_ranks)
+    try:
+        timed("planner_f64", phase_planner_f64, cfg, dev)
+        spath = timed("device_search", phase_device_search, dev)
+    finally:
+        ranks.thread.join()
+    planner_graph = timed("planner_graph", phase_planner_graph, cfg, dev, False)
+    threaded, plan = timed("plan_fleet", phase_plan_fleet, cfg, dev, payload)
+    fleet, mp_row = timed("fleet_mp", phase_fleet_mp, mp_build.result())
+    rollout = timed("planned_rollout", phase_planned_rollout, fleet, cfg, dev)
+    multi = timed("multi_gpu", phase_multi_gpu, payload, cfg, dev, ranks)
+    rt64, rt32, parts, e2e_plan = timed("runtime", run_runtime, dev, False)
+    a_probe = timed("kernel_a_probe", phase_kernel_a_probe, dev)
+    gate_rows = timed("gates", run_gates, payload, cfg, dev, main_recs, rt32, e2e_plan, out_dir)
+    edges = timed("edges", phase_edges, dev, card, main_res, rt64, rt32)
+    sync = timed("sync_fleet", phase_sync_fleet, cfg, dev, plan, threaded)
+    examples = timed("examples", phase_examples, dev)
 
     keys = ("max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
             "roofline_share", "library_ms")
@@ -2756,6 +3174,7 @@ def main(argv):
          "launches_solver_configs": {name: r["launches"]["chol_inverse"]
                                      for name, r in solver.items()},
          **gate_launches(gate_rows, "chol_inverse"),
+         "launches_graph_phase": graph_launches(graph_row, "chol_inverse"),
          **summary(a[0]), "launch_only_ms": a[0]["launch_only_ms"],
          "library": a[0]["library"],
          "shapes": [{"shape": r["shape"], "dtype": r["dtype"], **summary(r),
@@ -2778,6 +3197,7 @@ def main(argv):
          "launches_solver_configs": {name: r["launches"]["line_polytope"]
                                      for name, r in solver.items()},
          **gate_launches(gate_rows, "line_polytope"),
+         "launches_graph_phase": graph_launches(graph_row, "line_polytope"),
          **summary(b), "launch_only_ms": b["launch_only_ms"],
          "bound_ms_all_rows": b["bound_ms_all_rows"],
          "library": None,
@@ -2795,10 +3215,12 @@ def main(argv):
                        "device_search": spath, "fleet_mp": mp_row, "planned_rollout": rollout,
                        "multi_gpu": multi, "runtime_f64": rt64, "runtime_f32": rt32,
                        "runtime_parts": parts, "edges": edges, "sync_fleet": sync,
-                       "examples": examples, "gates": gate_rows, **kernels}, f, indent=1)
+                       "examples": examples, "gates": gate_rows,
+                       "phase_seconds": PHASE_SECONDS, **kernels}, f, indent=1)
         with open(path + ".log") as src, open(os.path.join(out_dir, "nvcc.log"), "w") as dst:
             dst.write(src.read())
-    emit({"phase": "script", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "script", "seconds": time.perf_counter() - t_start,
+          "phase_seconds": PHASE_SECONDS})
     print(card, flush=True)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
 """The two hand-written CUDA kernels against their plain PyTorch versions,
-and the tick's and the planner's CUDA graphs against their eager routes,
-on the card. Every test here needs a CUDA device and skips without one.
+and the tick's, the rollout step's and the planner's CUDA graphs against
+their eager routes, on the card (with a probe of the conditional node
+that the rollout step's retry is captured into). Every test here needs a CUDA device and skips without one.
 
 The port runs without JAX, and so does this file; it also holds the
 seeded input generators that ``test_torch_kernels.py`` shares. On the
@@ -453,6 +454,166 @@ def test_cuda_graph_first_difference_finds_none(cuda_device):
     # the eager run launched once more, the capture not at all
     assert (kkt_inverse.launches, cuda_proj.line_polytope_projection.launches) == (
         before[0] + 12, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_if_node_probe(cuda_device):
+    """`mpc.graph.device_cond` under a capture: the branch is captured
+    into a graph of its own and added as an IF node (``csrc/graph_cond.cu``);
+    a tensor allocated inside the branch comes from the branch graph's
+    private pool; a replay whose predicate is false leaves the branch's
+    outputs as they were, one whose predicate is true runs it; the
+    branch's launches of kernel A are taken off the count and kept apart
+    (``branch_launches``), not added by a replay."""
+    from boundplanner_tpu_torch.mpc import graph as graph_mod
+
+    x = torch.zeros(4, device=cuda_device)
+    k = torch.from_numpy(spd(np.random.default_rng(11), 2, 16).astype(np.float32)).to(cuda_device)
+    out = torch.zeros(4, device=cuda_device)
+    inv = torch.zeros_like(k)
+    ptrs = []
+
+    def fn(x, k):
+        pred = x.sum() > 0
+
+        def body():
+            tmp = x * 2 + 1
+            ptrs.append(tmp.data_ptr())
+            out.copy_(tmp)
+            inv.copy_(kkt_inverse(k))
+
+        graph_mod.device_cond(pred, body)
+        return out * 1
+
+    runner = graph_mod.Graph(fn, (x, k))
+    runner(x, k)           # warm-up (the branch runs) and capture
+    assert runner.launches == [0, 0] and runner.branch_launches == [1, 0]
+    (branch,) = runner.branches
+    pool = tuple(branch.pool())
+    captured = ptrs[-1]
+    seg = [s for s in torch.cuda.memory_snapshot()
+           if s["address"] <= captured < s["address"] + s["total_size"]]
+    assert len(seg) == 1 and tuple(seg[0]["segment_pool_id"]) == pool, seg
+    before = kkt_inverse.launches
+    out.fill_(-1.0)
+    inv.fill_(-1.0)
+    got = runner(torch.zeros_like(x), k)
+    assert (got == -1).all() and (inv == -1).all()
+    got = runner(torch.ones_like(x), k)
+    assert (got == 3).all()
+    np.testing.assert_allclose(inv.cpu().numpy(), kkt_inverse(k).cpu().numpy(), rtol=0,
+                               atol=1e-5 * float(inv.abs().max()))
+    assert kkt_inverse.launches == before + 1   # the check's own call
+
+
+def step_inputs(dev):
+    """Scenes 0-1 of `.fleet_cache/test8.pkl` in f32 on ``dev`` from a rest
+    state 0.3 rad (seeded) off their start."""
+    from boundplanner_tpu_torch.parallel.fleet_cache import load, to_torch, tree_map
+
+    payload = load(os.path.join(os.path.dirname(__file__), "..", ".fleet_cache", "test8.pkl"))
+    carry, q0, obs = tree_map(lambda a: np.asarray(a)[:2],
+                              (payload["carry"], payload["q0"], payload["obs"]))
+    q0 = q0 + 0.3 * np.random.default_rng(4).normal(size=q0.shape)
+    return to_torch((carry, q0, obs), dev, torch.float32)
+
+
+# perf, and 4 escalation lanes at a base budget of 1 SQP x 2 IPM iterations
+# (which the perturbed lanes fail) with a retry at the same budget and a
+# streak limit of 1: a lane that fails again is not retried on the next
+# tick, so the branch runs on some ticks and not on others
+STEP_CONFIGS = {"perf": {}, "esc4": dict(esc_lanes=4, sqp_iters=1, qp_iters=2,
+                                          esc_sqp_iters=1, esc_qp_iters=2,
+                                          esc_streak_limit=1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(STEP_CONFIGS))
+def test_cuda_step_graph_equals_eager(cuda_device, name):
+    """The rollout's step graph (the plant step, the tick and the retry
+    under its IF node, one replay a tick) against the eager route on the
+    card: 2 scenes x 3 ticks in f32, bit for bit, after a 1-tick rollout
+    that captures it; the bookkeeping counts the tick's launches on every
+    replay and the retry's once per fired tick, and the graph's count of
+    fired ticks equals the eager route's host count (some ticks fired,
+    some not)."""
+    import dataclasses
+
+    from boundplanner_tpu_torch.config import perf_mpc_params
+    from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
+    from boundplanner_tpu_torch.parallel import batch
+    from boundplanner_tpu_torch.parallel.fleet_cache import to_numpy, tree_map
+
+    cfg = dataclasses.replace(perf_mpc_params(), **STEP_CONFIGS[name])
+    inputs = step_inputs(cuda_device)
+    eager = FleetMPC(cfg, device=cuda_device, graph=False)
+    graph = FleetMPC(cfg, device=cuda_device)
+    batch._escalate_failed_lanes.retries = 0
+    ref = to_numpy(batch.fleet_rollout(*inputs, eager, 3))
+    fired = batch._escalate_failed_lanes.retries
+    batch.fleet_rollout(*inputs, graph, 1)
+    (runner,) = graph.graphs.values()
+    kkt_inverse.launches = 0
+    cuda_proj.line_polytope_projection.launches = 0
+    batch._escalate_failed_lanes.retries = 0
+    got = to_numpy(batch.fleet_rollout(*inputs, graph, 3))
+    per_tick = cfg.sqp_iters * cfg.qp_iters
+    assert runner.replays == 3 and runner.launches == [per_tick, 1]
+    assert batch._escalate_failed_lanes.retries == fired
+    if cfg.esc_lanes:
+        assert 0 < fired < 3, fired
+        assert runner.branch_launches == [cfg.esc_sqp_iters * cfg.esc_qp_iters, 1]
+    else:
+        assert fired == 0
+    assert (kkt_inverse.launches, cuda_proj.line_polytope_projection.launches) == (
+        3 * per_tick + fired * cfg.esc_sqp_iters * cfg.esc_qp_iters, 3 + fired)
+    out_got, out_ref = [], []
+    tree_map(out_got.append, got)
+    tree_map(out_ref.append, ref)
+    for g, r in zip(out_got, out_ref):
+        np.testing.assert_array_equal(g, r)
+
+
+# a cold step graph's first tick is its warm-up, which runs the retry
+# whatever its predicate: at a streak limit of 0 no lane is eligible, so
+# the retry never fires; at STEP_CONFIGS' esc4 budget every perturbed lane
+# fails the first tick, so it fires there
+COLD_CONFIGS = {"never_fires": dict(esc_lanes=4, esc_streak_limit=0),
+                "fires_first": STEP_CONFIGS["esc4"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(COLD_CONFIGS))
+def test_cuda_cold_step_graph_counts_the_warm_up_retry(cuda_device, name):
+    """A cold step-graph rollout (2 scenes x 3 ticks, f32): the warm-up's
+    retry counts its launches where it ran, fired or not, and a run that
+    fired nothing goes to ``_escalate_failed_lanes.idle_runs``; the
+    replays add the retry's launches once per later fired tick. So the
+    counts hold what the card ran: the tick's launches on every tick, the
+    retry's on every fired tick and on an idle warm-up run."""
+    import dataclasses
+
+    from boundplanner_tpu_torch.config import perf_mpc_params
+    from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
+    from boundplanner_tpu_torch.parallel import batch
+
+    cfg = dataclasses.replace(perf_mpc_params(), **COLD_CONFIGS[name])
+    inputs = step_inputs(cuda_device)
+    esc = batch._escalate_failed_lanes
+    esc.retries = esc.idle_runs = 0
+    batch.fleet_rollout(*inputs, FleetMPC(cfg, device=cuda_device, graph=False), 3)
+    fired = esc.retries
+    kkt_inverse.launches = 0
+    cuda_proj.line_polytope_projection.launches = 0
+    esc.retries = esc.idle_runs = 0
+    batch.fleet_rollout(*inputs, FleetMPC(cfg, device=cuda_device), 3)
+    assert esc.retries == fired
+    assert (fired, esc.idle_runs) == ((0, 1) if name == "never_fires" else (fired, 0))
+    assert fired or name == "never_fires"
+    runs = fired + esc.idle_runs
+    assert (kkt_inverse.launches, cuda_proj.line_polytope_projection.launches) == (
+        3 * cfg.sqp_iters * cfg.qp_iters + runs * cfg.esc_sqp_iters * cfg.esc_qp_iters,
+        3 + runs)
 
 
 PLANNER_KEYS = ("fsap", "fsap_mid", "fsl", "mvie", "feas", "fit_ee", "proj", "via_rot_2",

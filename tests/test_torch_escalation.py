@@ -15,6 +15,13 @@ in ``fleet_rollout``) against the JAX package's:
   overflows and keeps its base fallback. The records and every carry leaf
   but one agree with JAX's ``fleet_rollout`` within 1e-7 of each leaf's
   largest entry, and ``chunked_rollout`` carries the escalation through.
+- no escalation where JAX has none: JAX's ``closed_loop_rollout`` (and so
+  ``sharded_rollout`` and ``distributed_rollout``, which ``vmap`` it)
+  ignores ``esc_lanes``. At the same escalated configuration the port's
+  ``closed_loop_rollout`` of scene 0 and its ``sharded_rollout`` over one
+  CPU device equal JAX's vmapped ``closed_loop_rollout`` at the slice
+  test's tolerances, and the unescalated ``fleet_rollout`` of the same
+  scenes bit for bit (each retried scene 0 and succeeded before).
 
   Two leaves are held apart (the numbers below: ``python
   tests/torch_config_drift.py --escalated-only``): the decision vector
@@ -43,7 +50,8 @@ from boundplanner_tpu.parallel import batch as jbatch
 from boundplanner_tpu_torch.mpc import ocp as tocp
 from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC, build_tick_params
 from boundplanner_tpu_torch.parallel import batch as tbatch
-from boundplanner_tpu_torch.parallel.fleet_cache import to_numpy, to_torch
+from boundplanner_tpu_torch.parallel.fleet_cache import to_numpy, to_torch, tree_map
+from boundplanner_tpu_torch.parallel.mesh import make_mesh, sharded_rollout
 from torch_tick_parity import assert_trees_close, configs, fleet_scenes, jax_inputs
 
 torch.set_num_threads(1)
@@ -195,11 +203,11 @@ def escalated():
                              esc_cfg, model.st)
         return float(torch.sum(r * r) + esc_cfg.merit_penalty * torch.clamp(g, min=0).sum())
 
-    return jout, tout, base, chunked, widths, retries, merit
+    return jout, tout, base, chunked, widths, retries, merit, (carry, q0, obs)
 
 
 def test_escalated_tick_matches_jax(escalated):
-    (jfinal, jrecs), (tfinal, trecs), (_, brecs), _, widths, retries, merit = escalated
+    (jfinal, jrecs), (tfinal, trecs), (_, brecs), _, widths, retries, merit, _ = escalated
     # every lane fails the base budget; the retry rescues the first two
     assert not brecs["success"].any()
     np.testing.assert_array_equal(trecs["success"][:, 0], [True, True, False])
@@ -220,7 +228,77 @@ def test_escalated_tick_matches_jax(escalated):
 
 
 def test_chunked_rollout_passes_escalation_through(escalated):
-    _, (tfinal, trecs), _, (cfinal, crecs), _, _, _ = escalated
+    _, (tfinal, trecs), _, (cfinal, crecs), _, _, _, _ = escalated
     for key in trecs:
         np.testing.assert_array_equal(crecs[key], trecs[key])
     np.testing.assert_array_equal(cfinal.x_prev, tfinal.x_prev)
+
+
+# --- no escalation where JAX has none ---------------------------------------
+
+
+@pytest.fixture(scope="module")
+def unescalated_jax(escalated):
+    """JAX's jitted ``closed_loop_rollout`` of the three scenes (vmapped,
+    as its ``sharded_rollout`` runs it) at the escalated configuration."""
+    carry, q0, obs = escalated[-1]
+    jcfg = configs(**ESC_FIELDS)[0]
+    jcarry, jobs = jax_inputs((carry, q0, obs))
+    roll = jax.vmap(lambda c, q, o: jbatch.closed_loop_rollout(c, q, o, jcfg, 1))
+    return jax.tree.map(np.asarray, roll(jcarry, jnp.asarray(q0), jobs))
+
+
+def assert_slice_close(final, recs, jfinal, jrecs):
+    """``test_torch_slice.py``'s tolerances: q/phi/p 1e-6, viol 1e-8, flags
+    exact, the final decision vector 1e-6 of its largest entry."""
+    np.testing.assert_array_equal(recs["success"], jrecs["success"])
+    for key in ("q", "phi", "p"):
+        np.testing.assert_allclose(recs[key], jrecs[key], rtol=0, atol=1e-6)
+    np.testing.assert_allclose(recs["viol"], jrecs["viol"], rtol=0, atol=1e-8)
+    x_scale = np.abs(jfinal.x_prev).max()
+    np.testing.assert_allclose(final.x_prev, jfinal.x_prev, rtol=0, atol=1e-6 * x_scale)
+    for name in ("split_idx", "switch", "has_prev", "error_count"):
+        np.testing.assert_array_equal(getattr(final, name), getattr(jfinal, name))
+
+
+def assert_bitwise(got, ref):
+    got_leaves, ref_leaves = [], []
+    tree_map(got_leaves.append, got)
+    tree_map(ref_leaves.append, ref)
+    assert len(got_leaves) == len(ref_leaves)
+    for g, r in zip(got_leaves, ref_leaves):
+        np.testing.assert_array_equal(g, r)
+
+
+def test_closed_loop_rollout_does_not_escalate(escalated, unescalated_jax):
+    """Scene 0 fails the base budget; JAX's closed loop keeps the failure,
+    and so does the port's at ``esc_lanes=2``: equal to the unescalated
+    ``fleet_rollout`` of scene 0 bit for bit. That one runs at batch 1 too
+    (the base rollout's batch 3 rounds a few entries 1 ulp apart)."""
+    inputs = to_torch(tree_map(lambda a: a[:1], escalated[-1]), "cpu", torch.float64)
+    unescalated = FleetMPC(configs(**dict(ESC_FIELDS, esc_lanes=0))[1], device="cpu",
+                           dtype=torch.float64)
+    base = to_numpy(tbatch.fleet_rollout(*inputs, unescalated, 1))
+    model = FleetMPC(configs(**ESC_FIELDS)[1], device="cpu", dtype=torch.float64)
+    tbatch._escalate_failed_lanes.retries = 0
+    first = lambda t: t[0]
+    final, recs = to_numpy(tbatch.closed_loop_rollout(*tree_map(first, inputs), model, 1))
+    assert tbatch._escalate_failed_lanes.retries == 0
+    assert not recs["success"].any()
+    jfinal, jrecs = unescalated_jax
+    assert_slice_close(final, recs, *tree_map(first, (jfinal, jrecs)))
+    assert_bitwise((final, recs), tree_map(first, base))
+
+
+def test_sharded_rollout_does_not_escalate(escalated, unescalated_jax):
+    """``sharded_rollout`` over one CPU device at ``esc_lanes=2``: JAX's
+    vmapped closed loop, and the unescalated rollout bit for bit."""
+    _, _, base, _, _, _, _, inputs = escalated
+    tbatch._escalate_failed_lanes.retries = 0
+    final, recs, diag = sharded_rollout(*to_torch(inputs, "cpu", torch.float64),
+                                        configs(**ESC_FIELDS)[1], 1, make_mesh(devices=["cpu"]))
+    final, recs = to_numpy((final, recs))
+    assert tbatch._escalate_failed_lanes.retries == 0
+    assert diag["success_rate"] == 0.0
+    assert_slice_close(final, recs, *unescalated_jax)
+    assert_bitwise((final, recs), base)

@@ -8,9 +8,10 @@ and input signature. What the CPU can hold of it:
   ``torch_host_guard.host_guard``, which raises on any host data or host
   read inside the tick (a captured graph would bake the one in and cannot
   do the other);
-- (b) the graph's body (copy-in, the tick on the static inputs,
-  clone-out), run eagerly, equals the eager route bit for bit over a
-  3-tick ``fleet_rollout``, also with the escalation retry's own graph;
+- (b) the graph's body, run eagerly, equals the eager route bit for bit
+  over a 3-tick ``fleet_rollout``, also with the escalation retry: the
+  rollout's step graph (`parallel.batch._rollout_step`, one per
+  configuration, escalation and signature) holds the tick and the retry;
 - (c) that body in float64 against the JAX package's jitted
   ``fleet_rollout`` (3 ticks) at ``test_torch_slice.py``'s tolerances;
 - (d) the CPU default is eager, and ``graph=True`` on the CPU raises.
@@ -101,8 +102,8 @@ def test_tick_is_capture_safe(name):
 
 
 def body_rollout(esc_lanes):
-    """A 3-tick float64 ``fleet_rollout`` through each signature's graph
-    body; returns (numpy result, model, retries)."""
+    """A 3-tick float64 ``fleet_rollout`` through the step graph's body;
+    returns (numpy result, model, retries)."""
     cfg = dataclasses.replace(tconfig.perf_mpc_params(), esc_lanes=esc_lanes)
     model = FleetMPC(cfg, device="cpu", dtype=torch.float64)
     model.graph = True
@@ -118,16 +119,17 @@ def body_no_esc():
 
 @pytest.mark.parametrize("esc_lanes", [0, 4])
 def test_graph_body_equals_eager_rollout(esc_lanes, body_no_esc):
-    """(b) 3 ticks through each signature's graph body equal the eager
-    route bit for bit; with 4 escalation lanes the retry (scene 0, tick
-    3) runs through its own graph."""
+    """(b) 3 ticks through the step graph's body equal the eager route bit
+    for bit; with 4 escalation lanes the retry (scene 0, tick 3) runs
+    inside the same step graph, whose key names the escalation."""
     got, body, retries = body_no_esc if esc_lanes == 0 else body_rollout(esc_lanes)
     eager = FleetMPC(body.cfg, device="cpu", dtype=torch.float64)
     assert eager.graph is False
     tbatch._escalate_failed_lanes.retries = 0
     ref = to_numpy(tbatch.fleet_rollout(*scenes(), eager, TICKS))
     assert tbatch._escalate_failed_lanes.retries == retries == (1 if esc_lanes else 0)
-    assert len(body.graphs) == 1 + retries and not eager.graphs
+    (key,) = body.graphs
+    assert key[:3] == (tbatch._rollout_step, body.cfg, (esc_lanes > 0,)) and not eager.graphs
     for g, r in zip(leaves(got), leaves(ref)):
         assert g.dtype == r.dtype and g.shape == r.shape
         np.testing.assert_array_equal(g, r)
