@@ -1,0 +1,4 @@
+"""``kernels_per_tick.f64``: the card's events a tick in the float64 fleet's traced rollout.
+See ``benchmark/readers.py::kernels_per_tick``."""
+
+from benchmark.readers import kernels_per_tick as read  # noqa: F401

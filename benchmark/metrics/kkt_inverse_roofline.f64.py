@@ -1,0 +1,4 @@
+"""``kkt_inverse_roofline.f64``: kernel A's share of its roofline in the float64 fleet.
+See ``benchmark/readers.py::kkt_inverse_roofline``."""
+
+from benchmark.readers import kkt_inverse_roofline as read  # noqa: F401
