@@ -1,0 +1,9 @@
+"""``ocp_device_ms.arm``: the OCP evaluation and Jacobians' device time a
+tick (the ``ocp`` phase), in the single arm's traced periods. See
+``benchmark/phase_readers.py``."""
+
+from benchmark.phase_readers import phase_device_ms
+
+
+def read(run):
+    return phase_device_ms(run, "ocp")

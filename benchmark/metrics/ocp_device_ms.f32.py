@@ -1,0 +1,9 @@
+"""``ocp_device_ms.f32``: the OCP evaluation and Jacobians' device time a
+tick (the ``ocp`` phase), in the float32 fleet's traced rollout. See
+``benchmark/phase_readers.py``."""
+
+from benchmark.phase_readers import phase_device_ms
+
+
+def read(run):
+    return phase_device_ms(run, "ocp")

@@ -52,3 +52,32 @@ extern "C" int bp_graph_add_if(void* stream_ptr, const void* pred, void* body) {
     return cudaStreamUpdateCaptureDependencies(stream, &node, 1,
                                                cudaStreamSetCaptureDependencies);
 }
+
+// Phase marks (`telemetry.mark`, `telemetry.device_phase`): one empty
+// one-thread kernel per phase of the tick, named after its phase. A mark
+// launched on a capturing stream becomes a node of the graph, so every
+// replay carries the phase boundaries on the card's clock, in the
+// profiler's device events by name. bp_phase_mark(stream, id) launches
+// the mark of phase `id` (the order of `telemetry.PHASES`) on `stream`;
+// returns a cudaError_t.
+
+extern "C" __global__ void bp_phase_tick() {}
+extern "C" __global__ void bp_phase_link() {}
+extern "C" __global__ void bp_phase_ocp() {}
+extern "C" __global__ void bp_phase_qp() {}
+extern "C" __global__ void bp_phase_line_search() {}
+extern "C" __global__ void bp_phase_rest() {}
+
+extern "C" int bp_phase_mark(void* stream_ptr, int id) {
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    switch (id) {
+        case 0: bp_phase_tick<<<1, 1, 0, stream>>>(); break;
+        case 1: bp_phase_link<<<1, 1, 0, stream>>>(); break;
+        case 2: bp_phase_ocp<<<1, 1, 0, stream>>>(); break;
+        case 3: bp_phase_qp<<<1, 1, 0, stream>>>(); break;
+        case 4: bp_phase_line_search<<<1, 1, 0, stream>>>(); break;
+        case 5: bp_phase_rest<<<1, 1, 0, stream>>>(); break;
+        default: return cudaErrorInvalidValue;
+    }
+    return cudaGetLastError();
+}

@@ -18,7 +18,6 @@ reference's single-scene API (``__init__``/``update``/``step``) over a
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -26,6 +25,7 @@ import torch
 from torch import nn
 from torch.func import vmap
 
+from .. import telemetry
 from ..config import MPCParams
 from ..path import ref_fns
 from ..path.reference_path import (
@@ -149,7 +149,8 @@ def build_tick_params(carry: MPCCarry, meas: dict, obs: ObstacleArrays,
     weights, x_phi_d, phi_max_c = prep.shape_phi_weights(
         st.weights.expand(q0.shape[0], -1), path.phi_max, carry.phi_current
     )
-    a_j, b_j = prep.link_collision_sets(q0, meas["qf"], obs, st)
+    with telemetry.device_phase("link", q0.device):
+        a_j, b_j = prep.link_collision_sets(q0, meas["qf"], obs, st)
 
     params = {
         "q0": q0,
@@ -210,7 +211,15 @@ def _telemetry(i, p_i, v_i, ref_win, err_params, split_idx, p0_rot, n, nr_segs):
 
 def mpc_tick(carry: MPCCarry, meas: dict, obs: ObstacleArrays, cfg: MPCParams, st):
     """One control period for every scene. ``meas``: q0, dq0, ddq0, p0, v0,
-    u0, qf, each with a leading scene axis."""
+    u0, qf, each with a leading scene axis. Its phases are marked on the
+    card (`telemetry.device_tick`): ``tick`` where it starts, ``link`` (the
+    link collision sets), the SQP's ``ocp`` / ``qp`` / ``line_search``, and
+    ``rest`` after the link sets and after the SQP."""
+    with telemetry.device_tick(meas["q0"].device):
+        return _tick(carry, meas, obs, cfg, st)
+
+
+def _tick(carry: MPCCarry, meas: dict, obs: ObstacleArrays, cfg: MPCParams, st):
     n, nr_segs = cfg.n, cfg.nr_segs
     q0 = meas["q0"]
     dtype, dev = q0.dtype, q0.device
@@ -649,43 +658,51 @@ class BoundMPC:
     def step(self, q0, dq0, ddq0, p0, v0, jerk_current, qf=None):
         """One optimization step. Returns (traj_data, ref_data, err_data,
         t_solve, sqp_iters): numpy, horizon-major arrays transposed as in
-        the reference; ``t_solve`` in seconds, read after the card has
-        finished."""
+        the reference. The step is the span ``tick``, which holds the spans
+        ``tick.upload`` (the measurement to the card), ``tick.replay`` (the
+        tick: copy-in, replay and clone-out on the graph route),
+        ``tick.wait`` (until the card has finished) and ``tick.readback``
+        (the outputs to the host); ``t_solve`` is the time in seconds from
+        the replay's start to the readback's end."""
         if qf is None:
             qf = q0
-        meas = {key: self._on_device(np.asarray(val, dtype=np.float64)[None])
-                for key, val in (("q0", q0), ("dq0", dq0), ("ddq0", ddq0), ("p0", p0),
-                                 ("v0", v0), ("u0", jerk_current), ("qf", qf))}
-        one = lambda t: t[None]
-        t0 = time.perf_counter()
-        carry_b, out_b = self.model.tick(tree_map(one, self.carry), meas,
-                                         tree_map(one, self.obs))
-        out_t = tree_map(lambda t: t[0], out_b)
-        out = to_numpy(out_t)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t_solve = time.perf_counter() - t0
-        self.carry = tree_map(lambda t: t[0], carry_b)
-        self.error_count = int(to_numpy(self.carry.error_count))
-        self.last_cost = float(out["cost"])
-        self.last_viol = float(out["viol"])
+        with telemetry.span("tick"):
+            with telemetry.span("tick.upload"):
+                meas = {key: self._on_device(np.asarray(val, dtype=np.float64)[None])
+                        for key, val in (("q0", q0), ("dq0", dq0), ("ddq0", ddq0), ("p0", p0),
+                                         ("v0", v0), ("u0", jerk_current), ("qf", qf))}
+            one = lambda t: t[None]
+            with telemetry.span("tick.replay") as replay:
+                carry_b, out_b = self.model.tick(tree_map(one, self.carry), meas,
+                                                 tree_map(one, self.obs))
+            with telemetry.span("tick.wait"):
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            with telemetry.span("tick.readback") as readback:
+                out_t = tree_map(lambda t: t[0], out_b)
+                out = to_numpy(out_t)
+            t_solve = (readback.end_ns - replay.start_ns) * 1e-9
+            self.carry = tree_map(lambda t: t[0], carry_b)
+            self.error_count = int(to_numpy(self.carry.error_count))
+            self.last_cost = float(out["cost"])
+            self.last_viol = float(out["viol"])
 
-        if self.cartesian_acc:
-            acc = to_numpy(_cartesian_acc(out_t["q"][1:], out_t["dq"][1:], out_t["ddq"][1:],
-                                          self.model.st.chain)).T
-        else:
-            acc = out["v"][1:].T  # the reference aliases acc to vel
-        traj_data = {
-            "q": out["q"][1:].T,
-            "dq": out["dq"][1:].T,
-            "ddq": out["ddq"][1:].T,
-            "dddq": out["dddq"].T,
-            "p": out["p"][1:].T,
-            "v": out["v"][1:].T,
-            "a": acc,
-            "phi": out["phi"][1:],
-            "dphi": out["dphi"][1:],
-        }
-        ref_data = {"p": out["p_ref"], "success": bool(out["success"])}
-        err_data = {"e_p": out["e_p"], "e_r": out["e_r"], "e_rs": out["e_rs"]}
+            if self.cartesian_acc:
+                acc = to_numpy(_cartesian_acc(out_t["q"][1:], out_t["dq"][1:], out_t["ddq"][1:],
+                                              self.model.st.chain)).T
+            else:
+                acc = out["v"][1:].T  # the reference aliases acc to vel
+            traj_data = {
+                "q": out["q"][1:].T,
+                "dq": out["dq"][1:].T,
+                "ddq": out["ddq"][1:].T,
+                "dddq": out["dddq"].T,
+                "p": out["p"][1:].T,
+                "v": out["v"][1:].T,
+                "a": acc,
+                "phi": out["phi"][1:],
+                "dphi": out["dphi"][1:],
+            }
+            ref_data = {"p": out["p_ref"], "success": bool(out["success"])}
+            err_data = {"e_p": out["e_p"], "e_r": out["e_r"], "e_rs": out["e_rs"]}
         return traj_data, ref_data, err_data, t_solve, int(out["sqp_iters"])

@@ -58,12 +58,12 @@ from __future__ import annotations
 
 import contextlib
 import threading
-import time
 
 import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._pytree import tree_leaves
 
+from .. import telemetry
 from ..ops._build import check, library
 from ..ops.cuda_proj import line_polytope_projection
 from ..ops.linalg import kkt_inverse
@@ -210,7 +210,9 @@ class Graph:
     kernel; ``branch_launches`` those of its captured `device_cond`
     branches, once per replay whose predicate held), ``capture_s`` and
     ``pool_bytes`` (the card memory the capture reserved) describe the
-    graph once captured; ``replays`` counts its replays."""
+    graph once captured; ``replays`` counts its replays. The capture is
+    the span ``graph.capture`` (``capture_s`` its duration) and each replay
+    (launch and clones) the span ``graph.replay`` (`telemetry`)."""
 
     def __init__(self, fn, inputs):
         self.fn = fn
@@ -248,12 +250,13 @@ class Graph:
         with torch.cuda.device(self.device):
             if self.graph is None:
                 return self._warm_up_and_capture()
-            self.graph.replay()
-            with capture_lock(self.device):
-                for wrapper, n in zip(WRAPPERS, self.launches):
-                    wrapper.launches += n
-            self.replays += 1
-            return tree_map(torch.clone, self.static_out)
+            with telemetry.span("graph.replay"):
+                self.graph.replay()
+                with capture_lock(self.device):
+                    for wrapper, n in zip(WRAPPERS, self.launches):
+                        wrapper.launches += n
+                self.replays += 1
+                return tree_map(torch.clone, self.static_out)
 
     def add_branch_launches(self, fired: int) -> int:
         """Count the launches of the graph's captured branches in a run of
@@ -290,18 +293,19 @@ class Graph:
             # the capture empties the allocator's cache first; so does this,
             # for the reserved bytes to grow by the private pool alone
             torch.cuda.empty_cache()
-            reserved, t0 = _reserved(self.device), time.perf_counter()
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"), \
-                        _branches() as got:
-                    static_out = self.fn(*self.static_in)
-            finally:
-                self.launches = [w.launches - b for w, b in zip(WRAPPERS, before)]
-                for w, b in zip(WRAPPERS, before):
-                    w.launches = b
-            torch.cuda.synchronize(self.device)
-            self.capture_s = time.perf_counter() - t0
+            reserved = _reserved(self.device)
+            with telemetry.span("graph.capture") as capture:
+                graph = torch.cuda.CUDAGraph()
+                try:
+                    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"), \
+                            _branches() as got:
+                        static_out = self.fn(*self.static_in)
+                finally:
+                    self.launches = [w.launches - b for w, b in zip(WRAPPERS, before)]
+                    for w, b in zip(WRAPPERS, before):
+                        w.launches = b
+                torch.cuda.synchronize(self.device)
+            self.capture_s = capture.duration
             self.pool_bytes = _reserved(self.device) - reserved
             self.graph, self.static_out = graph, static_out
             self.branch_launches, self.branches = got.launches, got.graphs

@@ -1,5 +1,7 @@
-"""Build and load the hand-written CUDA kernels of ``csrc/`` (and the
-conditional graph node of ``csrc/graph_cond.cu``, `mpc.graph.device_cond`).
+"""Build and load the hand-written CUDA kernels of ``csrc/``, with
+``csrc/graph_cond.cu``'s graph helpers: the conditional graph node
+(`mpc.graph.device_cond`) and the tick's phase marks
+(`telemetry.device_phase`).
 
 ``nvcc`` compiles every ``csrc/*.cu`` (one ``nvcc`` per source, all
 started together) and links the objects into one shared library with a
@@ -39,6 +41,7 @@ _SIGNATURES = {
     "bp_chol_inverse_f64": (_P, _P, _I, _I, _P),
     "bp_line_polytope_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "bp_graph_add_if": (_P, _P, _P),
+    "bp_phase_mark": (_P, _I),
 }
 
 

@@ -7,6 +7,13 @@ link rows; every QP knob of the JAX engine).
 Problem form per scene:  min |r(x)|^2  s.t.  g(x) <= 0. Fixed-trip
 iteration with per-scene ``done`` masks keeps the batch in lockstep (no
 host sync inside the loop).
+
+Inside a tick (`telemetry.device_tick`), each iteration marks three
+phases on the card (`telemetry.device_phase`): ``ocp`` (the evaluation
+and Jacobians, with the first evaluation before the loop), ``qp`` (the
+gradient, Gram and Hessian and the QP solve) and ``line_search`` (the
+candidates through the iterate's update). Elsewhere (the planner) it
+marks nothing.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from .. import telemetry
 from .qp import solve_qp, solve_qp_admm
 
 
@@ -118,79 +126,86 @@ def gauss_newton_sqp(
             torch.clamp(g, min=0.0), dim=-1
         )
 
-    r_cur, g_cur = (t[:, 0] for t in eval_fn(x0[:, None]))
-    m0 = merit_of(r_cur, g_cur)
-    merit_prev = torch.where(torch.isfinite(m0), m0, torch.inf)
     x = x0
     lam = torch.full((bsz,), 1e-4, dtype=dtype, device=dev)
     done = torch.zeros(bsz, dtype=torch.bool, device=dev)
     used = torch.zeros(bsz, dtype=torch.int32, device=dev)
-    z_prev = torch.ones_like(g_cur) if qp_warm_dual else None
     ipm_kw = dict(iters=qp_iters, tol=1e-10, lowp=qp_lowp, kkt_every=kkt_every,
                   gondzio=qp_gondzio, lowp_rd=qp_lowp_rd, warm_sz=qp_warm_sz)
 
-    for _ in range(iters):
-        acol_u = None
-        if eval_jac_fn is None:
-            r, g = (t[:, 0] for t in eval_fn(x[:, None]))
-            with _TRANSFORMS:
-                jr, jg = jac_fwd(eval_fn, x)
-        elif link_a is not None:
-            r, g, jr, jg, acol_u = eval_jac_fn(x)
-        else:
-            r, g, jr, jg = eval_jac_fn(x)
-        grad = 2.0 * (jr.mT @ r[..., None])[..., 0]
-        gram = struct.gram_r(jr) if struct is not None else jr.mT @ jr
-        hess = 2.0 * gram + lam[:, None, None] * eye
+    with telemetry.device_phase("ocp", dev) as phase:
+        r_cur, g_cur = (t[:, 0] for t in eval_fn(x0[:, None]))
+        m0 = merit_of(r_cur, g_cur)
+        merit_prev = torch.where(torch.isfinite(m0), m0, torch.inf)
+        z_prev = torch.ones_like(g_cur) if qp_warm_dual else None
 
-        if qp_solver == "admm":
-            qp = solve_qp_admm(hess, grad, jg, -g, iters=admm_iters)
-        elif struct is not None and link_a is not None:
-            md, ml = struct.m_dense, struct.m_link
-            qp = solve_qp(hess, grad, jg, -g[:, :md], struct=struct, h_tail=-g[:, md + ml:],
-                          link=(acol_u, link_a), h_link=-g[:, md:md + ml], z0=z_prev,
-                          **ipm_kw)
-        elif struct is not None:
-            m_run = struct.m_run
-            qp = solve_qp(hess, grad, jg, -g[:, :m_run], struct=struct,
-                          h_tail=-g[:, m_run:], z0=z_prev, **ipm_kw)
-        else:
-            qp = solve_qp(hess, grad, jg, -g, z0=z_prev, **ipm_kw)
-        d = qp.x
+        for it in range(iters):
+            if it:
+                phase.to("ocp")
+            acol_u = None
+            if eval_jac_fn is None:
+                r, g = (t[:, 0] for t in eval_fn(x[:, None]))
+                with _TRANSFORMS:
+                    jr, jg = jac_fwd(eval_fn, x)
+            elif link_a is not None:
+                r, g, jr, jg, acol_u = eval_jac_fn(x)
+            else:
+                r, g, jr, jg = eval_jac_fn(x)
 
-        cand = x[:, None, :] + alphas[None, :, None] * d[:, None, :]
-        r_c, g_c = eval_fn(cand)
-        merits = merit_of(r_c, g_c)
-        merits = torch.where(torch.isfinite(merits), merits, torch.inf)
-        # tie band toward the LARGEST step: the first candidate within a
-        # relative band of the best merit (alphas descend); first-True
-        # argmax, on a float cast since argmax takes no bool
-        m_min = torch.amin(merits, dim=-1)
-        band = 1e-5 * torch.abs(m_min) + 1e-9
-        best = torch.argmax((merits <= (m_min + band)[:, None]).to(dtype), dim=-1)
-        merit_new = _pick(merits, best)
-        improved = merit_new < merit_prev - 1e-12
+            phase.to("qp")
+            grad = 2.0 * (jr.mT @ r[..., None])[..., 0]
+            gram = struct.gram_r(jr) if struct is not None else jr.mT @ jr
+            hess = 2.0 * gram + lam[:, None, None] * eye
 
-        imp = improved[:, None]
-        r_new = torch.where(imp, _pick(r_c, best), r_cur)
-        g_new = torch.where(imp, _pick(g_c, best), g_cur)
-        x_new = torch.where(imp, _pick(cand, best), x)
-        lam_new = torch.where(improved, torch.clamp(lam * 0.5, min=1e-8), lam * 10.0)
-        merit_next = torch.where(improved, merit_new, merit_prev)
+            if qp_solver == "admm":
+                qp = solve_qp_admm(hess, grad, jg, -g, iters=admm_iters)
+            elif struct is not None and link_a is not None:
+                md, ml = struct.m_dense, struct.m_link
+                qp = solve_qp(hess, grad, jg, -g[:, :md], struct=struct, h_tail=-g[:, md + ml:],
+                              link=(acol_u, link_a), h_link=-g[:, md:md + ml], z0=z_prev,
+                              **ipm_kw)
+            elif struct is not None:
+                m_run = struct.m_run
+                qp = solve_qp(hess, grad, jg, -g[:, :m_run], struct=struct,
+                              h_tail=-g[:, m_run:], z0=z_prev, **ipm_kw)
+            else:
+                qp = solve_qp(hess, grad, jg, -g, z0=z_prev, **ipm_kw)
+            d = qp.x
 
-        step_norm = torch.linalg.vector_norm(alphas[best][:, None] * d, dim=-1)
-        conv = improved & (step_norm < 1e-7)
+            phase.to("line_search")
+            cand = x[:, None, :] + alphas[None, :, None] * d[:, None, :]
+            r_c, g_c = eval_fn(cand)
+            merits = merit_of(r_c, g_c)
+            merits = torch.where(torch.isfinite(merits), merits, torch.inf)
+            # tie band toward the LARGEST step: the first candidate within a
+            # relative band of the best merit (alphas descend); first-True
+            # argmax, on a float cast since argmax takes no bool
+            m_min = torch.amin(merits, dim=-1)
+            band = 1e-5 * torch.abs(m_min) + 1e-9
+            best = torch.argmax((merits <= (m_min + band)[:, None]).to(dtype), dim=-1)
+            merit_new = _pick(merits, best)
+            improved = merit_new < merit_prev - 1e-12
 
-        dd = done[:, None]
-        x = torch.where(dd, x, x_new)
-        lam = torch.where(done, lam, lam_new)
-        merit_prev = torch.where(done, merit_prev, merit_next)
-        r_cur = torch.where(dd, r_cur, r_new)
-        g_cur = torch.where(dd, g_cur, g_new)
-        used = used + (~done).to(torch.int32)
-        done = done | conv | (lam > 1e8)
-        if qp_warm_dual:
-            z_prev = qp.z
+            imp = improved[:, None]
+            r_new = torch.where(imp, _pick(r_c, best), r_cur)
+            g_new = torch.where(imp, _pick(g_c, best), g_cur)
+            x_new = torch.where(imp, _pick(cand, best), x)
+            lam_new = torch.where(improved, torch.clamp(lam * 0.5, min=1e-8), lam * 10.0)
+            merit_next = torch.where(improved, merit_new, merit_prev)
+
+            step_norm = torch.linalg.vector_norm(alphas[best][:, None] * d, dim=-1)
+            conv = improved & (step_norm < 1e-7)
+
+            dd = done[:, None]
+            x = torch.where(dd, x, x_new)
+            lam = torch.where(done, lam, lam_new)
+            merit_prev = torch.where(done, merit_prev, merit_next)
+            r_cur = torch.where(dd, r_cur, r_new)
+            g_cur = torch.where(dd, g_cur, g_new)
+            used = used + (~done).to(torch.int32)
+            done = done | conv | (lam > 1e8)
+            if qp_warm_dual:
+                z_prev = qp.z
 
     viol = torch.amax(torch.clamp(g_cur, min=0.0), dim=-1)
     return SQPResult(

@@ -250,12 +250,6 @@ def test_telemetry_matches_jax():
     for key in ja:
         np.testing.assert_array_equal(ta[key], ja[key])
     assert tr.summary() == jr.summary()
-    timer = ttel.PhaseTimer()
-    with timer.phase("solve"):
-        pass
-    timer.add("solve", 0.5)
-    assert timer.counts["solve"] == 2 and timer.acc["solve"] >= 0.5
-    assert "solve" in timer.report()
 
 
 def random_carry(seed):
