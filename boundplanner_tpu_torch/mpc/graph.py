@@ -66,14 +66,14 @@ from torch.utils._pytree import tree_leaves
 from .. import telemetry
 from ..ops._build import check, library
 from ..ops.cuda_proj import line_polytope_projection
-from ..ops.linalg import kkt_inverse
+from ..ops.linalg import kkt_gram, kkt_inverse
 from ..utils.tree import tree_map
 
 # the wrappers whose ``launches`` a replay adds to (the functions
 # themselves: a caller that swaps a module's name for another route still
 # reads the counts here), and their kernels' names
-WRAPPERS = (kkt_inverse, line_polytope_projection)
-COUNTED = ("chol_inverse", "line_polytope")
+WRAPPERS = (kkt_inverse, line_polytope_projection, kkt_gram)
+COUNTED = ("chol_inverse", "line_polytope", "kkt_gram")
 
 
 def leaves(tree) -> list:
@@ -316,8 +316,9 @@ class Graph:
         floats = [t.dtype for t in leaves(self.static_in) if t.is_floating_point()]
         return {"batch": int(first.shape[0]) if first.dim() else None,
                 "dtype": str(floats[0]).split(".")[-1] if floats else None,
-                "launches": dict(zip(COUNTED, self.launches or (0, 0))),
-                "branch_launches": dict(zip(COUNTED, self.branch_launches or (0, 0))),
+                "launches": dict(zip(COUNTED, self.launches or (0,) * len(COUNTED))),
+                "branch_launches": dict(zip(COUNTED,
+                                            self.branch_launches or (0,) * len(COUNTED))),
                 "capture_s": self.capture_s, "pool_bytes": self.pool_bytes,
                 "replays": self.replays}
 

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels of ``csrc/``, with
+"""Build and load the hand-written CUDA kernels of ``csrc/`` (kernels A,
+B and C: ``chol_inverse.cu``, ``line_polytope.cu``, ``kkt_gram.cu``), with
 ``csrc/graph_cond.cu``'s graph helpers: the conditional graph node
 (`mpc.graph.device_cond`) and the tick's phase marks
 (`telemetry.device_phase`).
@@ -36,10 +37,13 @@ LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "bp_chol_inverse_f32": (_P, _P, _I, _I, _P),
     "bp_chol_inverse_f64": (_P, _P, _I, _I, _P),
     "bp_line_polytope_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "bp_kkt_gram_f64": (_P, _P, _P, _D, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _P),
     "bp_graph_add_if": (_P, _P, _P),
     "bp_phase_mark": (_P, _I),
 }

@@ -1,16 +1,21 @@
 """Batched dense linear algebra (port of ``boundplanner_tpu/ops/linalg.py``:
-the masked Cholesky, triangular solves and inverses, their blocked forms)
-and the wrapper of kernel A (``csrc/chol_inverse.cu``). Every function
-takes matrices (..., n, n) with any leading batch dimensions.
+the masked Cholesky, triangular solves and inverses, their blocked forms),
+the IPM's Gram, and the wrappers of kernel A (``csrc/chol_inverse.cu``)
+and kernel C (``csrc/kkt_gram.cu``). Every function takes matrices (..., n,
+n) with any leading batch dimensions, except ``kkt_gram`` (one batch axis).
 
 ``kkt_inverse`` is the IPM's factorization: L^{-1} for a batch of SPD
 matrices. On a CPU tensor it runs the plain version below (the masked
 column-loop Cholesky + row-loop inversion, the JAX package's own off-TPU
-path); on a CUDA tensor it launches kernel A or raises. There is no
-fallback between the two.
+path); on a CUDA tensor it launches kernel A or raises. ``kkt_gram`` is
+the dense IPM's KKT matrix P + G^T diag(w) G + reg I in float64: the plain
+expression on a CPU tensor, kernel C on a CUDA tensor. There is no
+fallback between the two routes of either.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -196,3 +201,106 @@ def kkt_inverse(kkt):
 
 
 kkt_inverse.launches = 0
+
+
+def _bf16(t):
+    """Round to bfloat16 and widen back: the operand of a bf16 product
+    with f32 accumulation (JAX's ``preferred_element_type=float32``)."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def dense_gram(g_mat, w, lowp: bool = False):
+    """G^T diag(w) G for a batch: g_mat (B, m, n), w (B, m). ``lowp``: G
+    and w rounded to bfloat16, the rest in float32. That is what the JAX
+    package's jitted ``g16 * w.astype(bf16)`` computes: XLA fuses the
+    product into float32 and never rounds it back to bfloat16 (excess
+    precision; only eager JAX rounds it)."""
+    if lowp:
+        g16 = _bf16(g_mat)
+        return g16.mT @ (g16 * _bf16(w)[..., None])
+    return (g_mat.mT * w[..., None, :]) @ g_mat
+
+
+def kkt_gram_plain(p_mat, g_mat, w, reg: float):
+    """Plain PyTorch version of kernel C: P + G^T diag(w) G + reg I."""
+    eye = torch.eye(p_mat.shape[-1], dtype=p_mat.dtype, device=p_mat.device)
+    return p_mat + dense_gram(g_mat, w) + reg * eye
+
+
+# kernel C's geometry (csrc/kkt_gram.cu): rows of G a stage, 16 x 8 tiles
+# of the lower triangle a block; the fewest rows a split of the rows takes
+GRAM_STAGE_ROWS = 32
+GRAM_BLOCK_TILES = 96
+GRAM_SPLIT_MIN_ROWS = 64
+
+
+def gram_tiles(n: int) -> int:
+    """The 16 x 8 tiles of an n x n lower triangle (89 at n = 136)."""
+    return sum(min(2 * i + 2, -(-n // 8)) for i in range(-(-n // 16)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def kkt_gram_splits(batch: int, m: int, n: int, sms: int) -> tuple[int, int]:
+    """(splits, rows a split) of kernel C's launch: one block per scene and
+    tile group where that fills the card's ``sms`` SMs; at smaller batches
+    the rows are split into at most sms / blocks ranges, and no more than
+    ranges of GRAM_SPLIT_MIN_ROWS rows would make (each a multiple of
+    GRAM_STAGE_ROWS rows, none empty), whose partials a second pass sums.
+    On 132 SMs, (128, 2439, 136): (1, 2464); (1, 2439, 136): (39, 64)."""
+    blocks = batch * -(-gram_tiles(n) // GRAM_BLOCK_TILES)
+    splits = max(1, min(sms // blocks, -(-m // GRAM_SPLIT_MIN_ROWS)))
+    rows = -(-max(m, 1) // splits)
+    rows = -(-rows // GRAM_STAGE_ROWS) * GRAM_STAGE_ROWS
+    return -(-max(m, 1) // rows), rows
+
+
+def kkt_gram(p_mat, g_mat, w, reg: float):
+    """K = P + G^T diag(w) G + reg I for a batch: p_mat (B, n, n)
+    symmetric, g_mat (B, m, n), w (B, m), all float64 on one device; P and
+    w contiguous, G with unit stride along its columns or its rows (the
+    dense route's forward-mode Jacobian arrives with strides (m, 1, B m)).
+    The plain expression (`kkt_gram_plain`) on the CPU, kernel C on a CUDA
+    tensor; K is then exactly symmetric (its lower triangle mirrored, P's
+    lower triangle read). ``launches`` counts kernel C's calls (one launch
+    each, and a second pass where the rows are split)."""
+    if g_mat.dim() != 3 or p_mat.dim() != 3 or w.dim() != 2:
+        raise ValueError("kkt_gram: need p (B, n, n), g (B, m, n), w (B, m)")
+    bsz, m, n = g_mat.shape
+    if tuple(p_mat.shape) != (bsz, n, n) or tuple(w.shape) != (bsz, m):
+        raise ValueError(f"kkt_gram: shapes p {tuple(p_mat.shape)}, g {tuple(g_mat.shape)}, "
+                         f"w {tuple(w.shape)} do not match")
+    if not p_mat.dtype == g_mat.dtype == w.dtype == torch.float64:
+        raise TypeError(f"kkt_gram: dtypes {p_mat.dtype}, {g_mat.dtype}, {w.dtype} "
+                        "(need float64)")
+    device = g_mat.device
+    if p_mat.device != device or w.device != device:
+        raise ValueError("kkt_gram: tensors on different devices")
+    if not (p_mat.is_contiguous() and w.is_contiguous()):
+        raise ValueError("kkt_gram: p and w must be contiguous")
+    if g_mat.stride(2) != 1 and g_mat.stride(1) != 1:
+        raise ValueError(f"kkt_gram: g's strides {g_mat.stride()} have no unit stride")
+    if device.type == "cpu":
+        return kkt_gram_plain(p_mat, g_mat, w, reg)
+    if device.type != "cuda":
+        raise ValueError(f"kkt_gram: unsupported device {device}")
+    out = torch.empty_like(p_mat)
+    if bsz == 0 or n == 0:
+        return out
+    splits, rows = kkt_gram_splits(bsz, m, n, _sm_count(device.index))
+    part = torch.empty((bsz, splits, n, n) if splits > 1 else (0,), dtype=out.dtype,
+                       device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        check(library().bp_kkt_gram_f64(p_mat.data_ptr(), g_mat.data_ptr(), w.data_ptr(),
+                                        float(reg), out.data_ptr(), part.data_ptr(),
+                                        *g_mat.stride(), bsz, m, n, splits, rows, stream),
+              "kkt_gram")
+    kkt_gram.launches += 1
+    return out
+
+
+kkt_gram.launches = 0

@@ -16,7 +16,10 @@ bfloat16 search directions and Grams (``lowp``, ``lowp_rd``), Gondzio
 correctors, the frozen KKT factor (``kkt_every``) and the dual and paired
 warm starts (``z0``, ``warm_sz``). Every KKT factorization goes through
 ``ops.linalg.kkt_inverse``, which picks kernel A or its plain version by
-device; JAX's ``pallas_kkt`` therefore has no counterpart here.
+device; JAX's ``pallas_kkt`` therefore has no counterpart here. The dense
+route's KKT matrix in float64 with n >= 64 goes through
+``ops.linalg.kkt_gram`` (kernel C on the card, the plain expression on
+the CPU); every other route keeps its expression.
 """
 
 from __future__ import annotations
@@ -25,7 +28,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .linalg import kkt_inverse
+from .linalg import _bf16, dense_gram, kkt_gram, kkt_inverse
+
+# the dense route's Gram goes to `kkt_gram` (kernel C on the card) from
+# this many decision variables up, in float64
+KKT_GRAM_MIN_N = 64
 
 
 class QPSolution(NamedTuple):
@@ -47,24 +54,6 @@ def _step_len(v, dv, tau=0.995):
     neg = dv < 0
     ratio = torch.where(neg, -v / torch.where(neg, dv, -1.0), torch.inf)
     return torch.clamp(tau * torch.amin(ratio, dim=-1), max=1.0)
-
-
-def _bf16(t):
-    """Round to bfloat16 and widen back: the operand of a bf16 product
-    with f32 accumulation (JAX's ``preferred_element_type=float32``)."""
-    return t.to(torch.bfloat16).to(t.dtype)
-
-
-def dense_gram(g_mat, w, lowp: bool = False):
-    """G^T diag(w) G for a batch: g_mat (B, m, n), w (B, m). ``lowp``: G
-    and w rounded to bfloat16, the rest in float32. That is what the JAX
-    package's jitted ``g16 * w.astype(bf16)`` computes: XLA fuses the
-    product into float32 and never rounds it back to bfloat16 (excess
-    precision; only eager JAX rounds it)."""
-    if lowp:
-        g16 = _bf16(g_mat)
-        return g16.mT @ (g16 * _bf16(w)[..., None])
-    return (g_mat.mT * w[..., None, :]) @ g_mat
 
 
 def solve_qp(
@@ -178,6 +167,8 @@ def solve_qp(
             if link is not None:
                 kkt = kkt + struct.link_gram(link[0], link[1], w[..., m_run:m_run + m_link])
             return kkt + struct.tail_gram(w[..., m_run + m_link:])
+        if dtype == torch.float64 and n >= KKT_GRAM_MIN_N:   # lowp is off in float64
+            return kkt_gram(p_mat, g_mat, w, reg)
         return p_mat + dense_gram(g_mat, w, lowp) + reg * eye_n
 
     tiny = torch.finfo(dtype).tiny

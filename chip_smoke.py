@@ -11,6 +11,7 @@ Run from the repository root on a machine with one NVIDIA GPU (H100):
     python3 chip_smoke.py --only-gates [--out DIR]
     python3 chip_smoke.py --only-graph [--out DIR]
     python3 chip_smoke.py --only-planner-graph [--out DIR]
+    python3 chip_smoke.py --only-kernel-c [--out DIR]
 
 The second form runs only the runtime phases (13-15 below); the fifth
 only builds, then runs kernel A at the retry's shape, kernel B's folds
@@ -29,11 +30,12 @@ and sound corridors (asserted); then the threaded, phase-synchronous and
 process-pool builders at their phases' sizes, each eagerly
 (``graph=False``) and then through the planner's graphs. The seventh only builds, then runs phase 5b
 below and the single arm's route comparison of phase 14 (~5 min); the
-last only builds, then runs phase 7b.
+eighth only builds, then runs phase 7b; the last only builds, then runs
+phase 3b.
 
 Phases (each asserts; any failure exits non-zero):
 
-1. the card's name and power limit (nvidia-smi); build both CUDA kernels
+1. the card's name and power limit (nvidia-smi); build the CUDA kernels
    from ``boundplanner_tpu_torch/csrc`` with nvcc (one per source, in
    parallel);
 2. kernel A (Cholesky + inverse) against its plain PyTorch version on the
@@ -51,6 +53,12 @@ Phases (each asserts; any failure exits non-zero):
    of the cached fleet's first tick ("tick_real", P = 12288), and on five
    edge cases of its row rule and exits (the same finite pattern as the
    plain version, and agreement where finite);
+3b. kernel C (the dense IPM's KKT matrix P + G^T diag(w) G + reg I, f64)
+   against its plain version at the float64 fleet's (128, 2439, 136) and
+   the arm's (1, 2439, 136): agreement within 1e-12 of the entries'
+   scale, K exactly symmetric, its time, in a graph and bare, its bound by
+   bytes and operations, the plain version's and the library expression's
+   time;
 4. a small f64 rollout on the card against the same rollout on the CPU;
 5. the main path: the cached 128-scene fleet, ``FleetMPC(perf_mpc_params())``
    -> ``chunked_rollout`` for 20 ticks in f32 (warm-up, then timed), with
@@ -133,7 +141,8 @@ Phases (each asserts; any failure exits non-zero):
     tests/test_e2e.py scene planned on the card in f64, then ``MPCNode``
     with ``MPCParams()`` in f64 (the first 3 ticks also on the CPU, in a
     child process beside the runtime phases) toward the path end, with
-    kernel A's (1, 136, 136) and (96, 4, 4) f64 rows;
+    kernel A's (1, 136, 136) and (96, 4, 4) f64 rows and kernel C's
+    launches (sqp x qp a step) asserted;
 14. the same plan through ``MPCNode`` with ``perf_mpc_params()`` in f32,
     the 10 Hz loop, with ``t_comp``/``t_loop`` percentiles; then
     (``runtime_routes``) both nodes for a few ticks on the graph route
@@ -295,6 +304,10 @@ SHARD = 64
 # the card's published peaks (H100 SXM, dense, at a 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}   # outside the tensor cores
+PEAK_F64_TENSOR_OPS_PER_S = 67e12                        # float64 mma (kernel C)
+# kernel C's shapes: the float64 fleet's (128 scenes) and the arm's (1)
+# dense QP, 2,439 rows of 136 variables
+KERNEL_C_SHAPES = ((128, 2439, 136), (1, 2439, 136))
 # kernel B's operations per problem (csrc/line_polytope.cu): 17 per row
 # correction (w = y + e, a.w - b, / |a|^2, clamp, e = t a, y = w - e), 11
 # per segment parameter and 6 per segment point, 6 per row and 9 for the
@@ -498,6 +511,70 @@ def phase_kernel_a(rng, dev):
         assert flags(li) == flags(lp) == NON_PD_FINITE, row
         assert err <= (2e-5 if dtype == torch.float32 else 1e-12), row
     return rows
+
+
+def kernel_c_row(phase, rng, bsz, m, n, dev, reps):
+    """Kernel C on IPM-like inputs (w over four decades, G in the layout
+    the dense route hands it) against its plain version (the expression it
+    replaced: the strided G w copy, the batched GEMM, + P, + reg I):
+    elementwise within 1e-12 (|P| + |G|^T |w| |G| + reg), K exactly
+    symmetric; times, bound and the library expression's time."""
+    import numpy as np
+    import torch
+    from boundplanner_tpu_torch.ops import linalg
+    from boundplanner_tpu_torch.ops._build import library
+    from boundplanner_tpu_torch.ops.linalg import kkt_gram, kkt_gram_plain
+
+    reg = 1e-10
+    # G in the dense route's layout: the forward-mode Jacobian's, strides
+    # (m, 1, B m)
+    g = torch.from_numpy(rng.normal(size=(n, bsz, m)) / np.sqrt(m)).to(dev).permute(1, 2, 0)
+    w = torch.from_numpy(10.0 ** rng.uniform(-2.0, 2.0, size=(bsz, m))).to(dev)
+    a = torch.from_numpy(rng.normal(size=(bsz, n, n))).to(dev)
+    p = a @ a.mT / n + torch.eye(n, dtype=torch.float64, device=dev)
+    got = kkt_gram(p, g, w, reg)
+    ref = kkt_gram_plain(p, g, w, reg)
+    scale = p.abs() + (g.abs().mT * w[..., None, :]) @ g.abs() + reg
+    torch.cuda.synchronize()
+    err_share = ((got - ref).abs() / scale).amax().item()
+    symmetric = bool(torch.equal(got, got.mT))
+    # the C entry alone into preallocated buffers (not counted as a launch)
+    splits, rows = linalg.kkt_gram_splits(bsz, m, n, linalg._sm_count(dev.index))
+    out = torch.empty_like(p)
+    part = torch.empty((bsz, splits, n, n) if splits > 1 else (0,), dtype=p.dtype, device=dev)
+    bare = (p.data_ptr(), g.data_ptr(), w.data_ptr(), reg, out.data_ptr(), part.data_ptr(),
+            *g.stride(), bsz, m, n, splits, rows, torch.cuda.current_stream(dev).cuda_stream)
+    entry = library().bp_kkt_gram_f64
+    eye = torch.eye(n, dtype=p.dtype, device=dev)
+    library_expr = lambda: torch.baddbmm(p + reg * eye, g.mT, g * w[..., None])
+    ms = cuda_ms(lambda: kkt_gram(p, g, w, reg), reps)
+    in_graph_ms = graph_ms(lambda: kkt_gram(p, g, w, reg))
+    launch_only_ms = cuda_ms(lambda: entry(*bare), reps)
+    plain_ms = cuda_ms(lambda: kkt_gram_plain(p, g, w, reg), 10)
+    library_ms = cuda_ms(library_expr, reps)
+    # G and w read once, P read and K written once; the lower triangle's
+    # products on the float64 tensor cores
+    bytes_moved = bsz * (m * n + m + 2 * n * n) * 8
+    ops = bsz * m * n * (n + 1)
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, ops / PEAK_F64_TENSOR_OPS_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    row = {"phase": phase, "shape": [bsz, m, n], "dtype": "float64", "splits": splits,
+           "rows_per_split": rows, "max_err_over_scale": err_share, "symmetric": symmetric,
+           "max_abs_err": (got - ref).abs().amax().item(),
+           "ms": ms, "graph_ms": in_graph_ms, "launch_only_ms": launch_only_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_ms_bytes": 1e3 * t_bytes, "bound_ms_operations": 1e3 * t_ops,
+           "roofline_share": bound_ms / ms,
+           "library": "torch.baddbmm(P + reg I, G^T, G * w)", "library_ms": library_ms}
+    emit(row)
+    assert err_share <= 1e-12 and symmetric, row
+    return row
+
+
+def phase_kernel_c(rng, dev):
+    """Kernel C at the float64 fleet's and the arm's shapes."""
+    return [kernel_c_row("kernel_c", rng, *shape, dev, 50) for shape in KERNEL_C_SHAPES]
 
 
 def projection_batch(rng, count, rows=15, n_active=4, n_obs=16):
@@ -769,7 +846,7 @@ def phase_main(payload, cfg, dev):
     import torch
     from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
     from boundplanner_tpu_torch.ops.cuda_proj import line_polytope_projection
-    from boundplanner_tpu_torch.ops.linalg import kkt_inverse
+    from boundplanner_tpu_torch.ops.linalg import kkt_gram, kkt_inverse
     from boundplanner_tpu_torch.parallel.batch import chunked_rollout, fleet_rollout
     from boundplanner_tpu_torch.parallel.fleet_cache import to_numpy, to_torch, tree_map
 
@@ -782,12 +859,15 @@ def phase_main(payload, cfg, dev):
     torch.cuda.synchronize()
     kkt_inverse.launches = 0
     line_polytope_projection.launches = 0
+    kkt_gram.launches = 0
     t0 = time.perf_counter()
     final, recs = chunked_rollout(carry, q0, obs, model, N_TICKS, chunk=CHUNK)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"chol_inverse": kkt_inverse.launches,
                 "line_polytope": line_polytope_projection.launches}
+    # the f32 path's QP is the structured bf16 route: no kernel C
+    assert kkt_gram.launches == 0, kkt_gram.launches
 
     for k, v in recs.items():
         assert v.shape[:2] == (batch, N_TICKS), (k, v.shape)
@@ -2311,18 +2391,21 @@ def phase_runtime_f64(dev, rng, plan):
     """The reference's configuration: ``MPCNode(q0)`` with ``MPCParams()``
     in f64 on the card toward the path end (there, the JAX e2e test's
     goal and fail bars). Every step launches kernel A sqp x qp + 25 times
-    (the SQP's IPM, then the f64 link sets' projection IPM) and kernel B
-    never. Returns the row and the node's state after each of its first
+    (the SQP's IPM, then the f64 link sets' projection IPM), kernel C sqp x
+    qp times and kernel B never. Returns the row and the node's state after each of its first
     RUNTIME_COMPARE_TICKS ticks (`check_card_vs_cpu`)."""
     import numpy as np
     import torch
     from boundplanner_tpu_torch.config import MPCParams
     from boundplanner_tpu_torch.mpc import MPCNode
 
+    from boundplanner_tpu_torch.ops.linalg import kkt_gram
+
     q0, args, obs_orig, goal, _ = plan
     cfg = MPCParams()
     want = (cfg.sqp_iters * cfg.qp_iters + PROJ_IPM_ITERS, 0)
     card = MPCNode(q0, device=dev)
+    gram0 = kkt_gram.launches
     assert card.mpc.cfg == cfg and card.dtype == torch.float64
     card.update_reference(*args)
     launches = [0, 0]
@@ -2335,8 +2418,12 @@ def phase_runtime_f64(dev, rng, plan):
         states.append({k: np.array(getattr(card, k)) for k in NODE_STATE})
         node_invariants(card, obs_orig)
     stop = drive_to_end(card, obs_orig, want, RUNTIME_F64_CAP_S, launches)
+    # kernel C: the SQP's dense KKT matrix, once per IPM iteration a step
+    steps = launches[0] // want[0]
+    gram = kkt_gram.launches - gram0
+    assert gram == steps * cfg.sqp_iters * cfg.qp_iters, (gram, steps)
     row = {**node_summary("runtime_f64", card, goal, launches, want, stop),
-           "card_vs_cpu_ticks": RUNTIME_COMPARE_TICKS,
+           "kernel_c_launches": gram, "card_vs_cpu_ticks": RUNTIME_COMPARE_TICKS,
            "kernel_a": kernel_a_row("runtime_f64_kkt",
                                     torch.from_numpy(spd_batch(rng, 1, dtype="float64")).to(dev),
                                     100),
@@ -3016,6 +3103,7 @@ def main(argv):
     only_gates = "--only-gates" in argv
     only_graph = "--only-graph" in argv
     only_planner_graph = "--only-planner-graph" in argv
+    only_kernel_c = "--only-kernel-c" in argv
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(root, "boundplanner_tpu_torch")):
         print("chip_smoke: boundplanner_tpu_torch not found beside this script",
@@ -3050,6 +3138,13 @@ def main(argv):
     _build.library()
     emit({"phase": "build", "seconds": build_s, "library": os.path.relpath(path, root)})
 
+    if only_kernel_c:
+        rows = phase_kernel_c(np.random.default_rng(0), dev)
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, "kernel_c.json"), "w") as f:
+                json.dump({"card": card, "kernel_c": rows}, f, indent=1)
+        return 0
     if only_runtime:
         run_runtime(dev)
         return 0
@@ -3119,6 +3214,7 @@ def main(argv):
     a = timed("kernel_a", phase_kernel_a, rng, dev)
     a_shard = timed("kernel_a_shard", phase_kernel_a_shard, dev)
     a_retry = timed("kernel_a_retry", phase_kernel_a_retry, dev)
+    c_rows = timed("kernel_c", phase_kernel_c, rng, dev)
     b_all = timed("kernel_b", phase_kernel_b, rng, dev, real)
     b = b_all[0]
     main_res, main_recs = timed("main_path", phase_main, payload, cfg, dev)
@@ -3181,6 +3277,15 @@ def main(argv):
                      "launch_only_ms": r["launch_only_ms"]}
                     for r in a + [a_shard, a_retry, a_probe] + a_plan + [rt64["kernel_a"],
                                                        rt64["kernel_a_projection"]]]},
+        {"name": "kkt_gram", "route": "cuda",
+         "source": "boundplanner_tpu_torch/csrc/kkt_gram.cu",
+         "replaces": None,
+         "launches_runtime_f64": rt64["kernel_c_launches"],
+         "launches_main_path": 0,
+         **summary(c_rows[0]), "launch_only_ms": c_rows[0]["launch_only_ms"],
+         "library": c_rows[0]["library"],
+         "shapes": [{"shape": r["shape"], "dtype": r["dtype"], **summary(r),
+                     "launch_only_ms": r["launch_only_ms"]} for r in c_rows]},
         {"name": "line_polytope", "route": "cuda",
          "source": "boundplanner_tpu_torch/csrc/line_polytope.cu",
          "replaces": "boundplanner_tpu/ops/pallas_proj.py:95",

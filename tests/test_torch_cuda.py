@@ -1,4 +1,4 @@
-"""The two hand-written CUDA kernels against their plain PyTorch versions,
+"""The three hand-written CUDA kernels against their plain PyTorch versions,
 and the tick's, the rollout step's and the planner's CUDA graphs against
 their eager routes, on the card (with a probe of the conditional node
 that the rollout step's retry is captured into). Every test here needs a CUDA device and skips without one.
@@ -17,7 +17,8 @@ plain version). Non-PD batches: the same finite/non-finite flag per
 matrix, and the same values where the clamp keeps a matrix finite. float32 kernel B 1e-4
 absolute where finite, and the same non-finite entries (FMA contraction in
 the kernel's dot products; Dykstra contracts, so the differences stay at a
-few ulps of the O(1) coordinates).
+few ulps of the O(1) coordinates). float64 kernel C elementwise 1e-12 x
+(|P| + |G|^T |w| |G| + reg): the same products, summed in another order.
 """
 
 import os
@@ -28,7 +29,7 @@ import pytest
 import torch
 
 from boundplanner_tpu_torch.ops import _build, cuda_proj
-from boundplanner_tpu_torch.ops.linalg import kkt_inverse, kkt_inverse_plain
+from boundplanner_tpu_torch.ops.linalg import kkt_gram, kkt_gram_plain, kkt_inverse, kkt_inverse_plain
 
 
 def spd(rng, bsz, n):
@@ -303,6 +304,110 @@ def test_cuda_wrappers_raise_on_bad_input(cuda_device):
             a, a[..., 0].contiguous(), a[:, 0].contiguous(), a[:, 0].contiguous())
 
 
+def gram_inputs(rng, bsz, m, n, dev, layout="row"):
+    """Kernel C's inputs: G standard normal, row-major or (``"col"``) in the
+    dense route's layout, the forward-mode Jacobian's strides (m, 1, B m);
+    P symmetric positive definite; weights log-uniform over 1e-14 .. 1e12
+    with exact 0, 1e-14 and 1e12 entries, as late IPM iterations hold
+    them."""
+    g = rng.normal(size=(bsz, m, n))
+    w = 10.0 ** rng.uniform(-14.0, 12.0, size=(bsz, m))
+    w.reshape(-1)[:3] = (0.0, 1e-14, 1e12)
+    p = spd(rng, bsz, n) / n
+    p, g, w = (torch.from_numpy(a).to(dev) for a in (p, g, w))
+    if layout == "col":
+        g = g.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    return p, g, w
+
+
+def gram_bound(p, g, w, reg):
+    """1e-12 x (|P| + |G|^T |w| |G| + reg): the summation order's reach."""
+    return 1e-12 * (p.abs() + (g.abs().mT * w.abs()[..., None, :]) @ g.abs() + reg)
+
+
+# the cells' shapes, ragged ones, and n = 160 (two tile groups a scene)
+GRAM_SHAPES = ([(b, 2439, 136, layout) for b in (1, 4, 128) for layout in ("col", "row")]
+               + [(3, m, n, layout) for n in (64, 100, 136) for m in (1, 17, 2439, 2440)
+                  for layout in ("col", "row")]
+               + [(3, 2439, 160, layout) for layout in ("col", "row")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,m,n,layout", GRAM_SHAPES)
+def test_cuda_kkt_gram_matches_plain(cuda_device, bsz, m, n, layout):
+    p, g, w = gram_inputs(np.random.default_rng(m + n + bsz), bsz, m, n, cuda_device, layout)
+    before = kkt_gram.launches
+    got = kkt_gram(p, g, w, 1e-10)
+    assert kkt_gram.launches == before + 1
+    ref = kkt_gram_plain(p, g, w, 1e-10)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert ((got - ref).abs() <= gram_bound(p, g, w, 1e-10)).all()
+    assert torch.equal(got, got.mT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz", [1, 128])
+def test_cuda_kkt_gram_bitwise_repeat_and_graph(cuda_device, bsz):
+    """Two launches agree bit for bit, and so does a launch captured in a
+    CUDA graph and replayed (batch 1 splits the rows and sums the partials
+    in a second pass; batch 128 takes one pass)."""
+    p, g, w = gram_inputs(np.random.default_rng(bsz), bsz, 2439, 136, cuda_device, "col")
+    first = kkt_gram(p, g, w, 1e-10)
+    second = kkt_gram(p, g, w, 1e-10)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        kkt_gram(p, g, w, 1e-10)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = kkt_gram.launches
+    with torch.cuda.graph(graph, stream=side):
+        captured = kkt_gram(p, g, w, 1e-10)
+    assert kkt_gram.launches == before + 1
+    captured.fill_(-1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, captured)
+
+
+@pytest.mark.cuda
+def test_cuda_kkt_gram_dispatch(cuda_device):
+    """``solve_qp`` launches kernel C once per IPM iteration on the dense
+    route in float64 with n >= 64, and never with bf16 directions, in
+    float32, below 64 variables or on the structured route."""
+    import dataclasses
+
+    from boundplanner_tpu_torch.config import perf_mpc_params
+    from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
+    from boundplanner_tpu_torch.ops import qp
+    from boundplanner_tpu_torch.parallel import batch
+
+    rng = np.random.default_rng(3)
+
+    def launches(n, dtype, **kw):
+        p, g, _ = gram_inputs(rng, 2, 300, n, cuda_device)
+        q = torch.from_numpy(rng.normal(size=(2, n))).to(cuda_device)
+        h = torch.from_numpy(rng.uniform(0.5, 1.5, size=(2, 300))).to(cuda_device)
+        before = kkt_gram.launches
+        sol = qp.solve_qp(*(t.to(dtype) for t in (p, q, g, h)), iters=4, **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(sol.x).all()
+        return kkt_gram.launches - before
+
+    assert launches(136, torch.float64) == 4
+    assert launches(64, torch.float64) == 4
+    assert launches(63, torch.float64) == 0
+    assert launches(136, torch.float32) == 0
+    assert launches(136, torch.float32, lowp=True) == 0
+    model = FleetMPC(dataclasses.replace(perf_mpc_params(), sqp_iters=1, qp_iters=2),
+                     device=cuda_device, dtype=torch.float64, graph=False)
+    before = kkt_gram.launches
+    batch.fleet_rollout(*step_inputs(cuda_device, torch.float64), model, 1)
+    torch.cuda.synchronize()
+    assert model.cfg.struct_ocp and kkt_gram.launches == before
+
+
 STRAIGHT_Q0 = np.array([0.0, 0.0, 0.0, -np.pi / 2, 0.0, np.pi / 2, 0.0])
 
 
@@ -329,7 +434,8 @@ def counted_step(node):
 def test_cuda_node_f64_matches_cpu(cuda_device):
     """MPCNode in f64 on the card (dense route, reduced budget) against the
     CPU over 2 ticks; each step launches kernel A sqp x qp + 25 times (the
-    SQP's IPM, then the link sets' projection IPM) and kernel B never."""
+    SQP's IPM, then the link sets' projection IPM), kernel C sqp x qp
+    times and kernel B never."""
     from boundplanner_tpu_torch.config import MPCParams
     from boundplanner_tpu_torch.mpc import MPCNode
 
@@ -338,7 +444,9 @@ def test_cuda_node_f64_matches_cpu(cuda_device):
     for node in (card, cpu):
         node.update_reference(*straight_reference(node))
     for _ in range(2):
+        before = kkt_gram.launches
         assert counted_step(card) == (2 * 6 + 25, 0)
+        assert kkt_gram.launches == before + 2 * 6     # the SQP's dense KKT matrices
         cpu.step()
         for key in ("q", "dq", "p_lie"):
             np.testing.assert_allclose(getattr(card, key), getattr(cpu, key), rtol=0, atol=1e-9)
@@ -347,14 +455,16 @@ def test_cuda_node_f64_matches_cpu(cuda_device):
 @pytest.mark.cuda
 def test_cuda_node_f32_perf_launches(cuda_device):
     """The 10 Hz configuration in f32: 12 kernel A and 1 kernel B launches
-    per step, finite state."""
+    per step, no kernel C, finite state."""
     from boundplanner_tpu_torch.config import perf_mpc_params
     from boundplanner_tpu_torch.mpc import MPCNode
 
     node = MPCNode(STRAIGHT_Q0, perf_mpc_params(), device=cuda_device, dtype=torch.float32)
     node.update_reference(*straight_reference(node))
+    before = kkt_gram.launches
     for _ in range(2):
         assert counted_step(node) == (12, 1)
+    assert kkt_gram.launches == before
     assert np.isfinite(node.q).all() and node.mpc.phi_current[0] > 0
 
 
@@ -420,7 +530,7 @@ def test_cuda_graph_replay_equals_eager(cuda_device):
     kkt_inverse.launches = 0
     cuda_proj.line_polytope_projection.launches = 0
     got = to_numpy(fleet_rollout(*inputs, graph, 3))
-    assert runner.replays == 3 and runner.launches == [12, 1]
+    assert runner.replays == 3 and runner.launches == [12, 1, 0]
     assert (kkt_inverse.launches, cuda_proj.line_polytope_projection.launches) == (36, 3)
     out_got, out_ref = [], []
     tree_map(out_got.append, got)
@@ -487,7 +597,7 @@ def test_cuda_if_node_probe(cuda_device):
 
     runner = graph_mod.Graph(fn, (x, k))
     runner(x, k)           # warm-up (the branch runs) and capture
-    assert runner.launches == [0, 0] and runner.branch_launches == [1, 0]
+    assert runner.launches == [0, 0, 0] and runner.branch_launches == [1, 0, 0]
     (branch,) = runner.branches
     pool = tuple(branch.pool())
     captured = ptrs[-1]
@@ -506,16 +616,16 @@ def test_cuda_if_node_probe(cuda_device):
     assert kkt_inverse.launches == before + 1   # the check's own call
 
 
-def step_inputs(dev):
-    """Scenes 0-1 of `.fleet_cache/test8.pkl` in f32 on ``dev`` from a rest
-    state 0.3 rad (seeded) off their start."""
+def step_inputs(dev, dtype=torch.float32):
+    """Scenes 0-1 of `.fleet_cache/test8.pkl` in ``dtype`` on ``dev`` from
+    a rest state 0.3 rad (seeded) off their start."""
     from boundplanner_tpu_torch.parallel.fleet_cache import load, to_torch, tree_map
 
     payload = load(os.path.join(os.path.dirname(__file__), "..", ".fleet_cache", "test8.pkl"))
     carry, q0, obs = tree_map(lambda a: np.asarray(a)[:2],
                               (payload["carry"], payload["q0"], payload["obs"]))
     q0 = q0 + 0.3 * np.random.default_rng(4).normal(size=q0.shape)
-    return to_torch((carry, q0, obs), dev, torch.float32)
+    return to_torch((carry, q0, obs), dev, dtype)
 
 
 # perf, and 4 escalation lanes at a base budget of 1 SQP x 2 IPM iterations
@@ -558,11 +668,11 @@ def test_cuda_step_graph_equals_eager(cuda_device, name):
     batch._escalate_failed_lanes.retries = 0
     got = to_numpy(batch.fleet_rollout(*inputs, graph, 3))
     per_tick = cfg.sqp_iters * cfg.qp_iters
-    assert runner.replays == 3 and runner.launches == [per_tick, 1]
+    assert runner.replays == 3 and runner.launches == [per_tick, 1, 0]
     assert batch._escalate_failed_lanes.retries == fired
     if cfg.esc_lanes:
         assert 0 < fired < 3, fired
-        assert runner.branch_launches == [cfg.esc_sqp_iters * cfg.esc_qp_iters, 1]
+        assert runner.branch_launches == [cfg.esc_sqp_iters * cfg.esc_qp_iters, 1, 0]
     else:
         assert fired == 0
     assert (kkt_inverse.launches, cuda_proj.line_polytope_projection.launches) == (
@@ -667,14 +777,14 @@ def test_cuda_planner_graph_equals_eager(cuda_device, planner_key_inputs, key):
     """Each planner key's CUDA graph against its eager call on the card, at
     width 2, bit for bit: the first call (eager warm-up on the side stream,
     then the capture) and a replay; the replay adds the eager call's
-    kernel A and B launches to the counts, and the eager call neither waits
+    counted kernels' launches to the counts, and the eager call neither waits
     for the card nor copies from the host
     (``set_sync_debug_mode("error")``)."""
-    from boundplanner_tpu_torch.mpc.graph import Graph
+    from boundplanner_tpu_torch.mpc.graph import WRAPPERS, Graph
     from boundplanner_tpu_torch.utils.tree import to_numpy, tree_map
 
     fn, inputs = planner_key_inputs[key]
-    counts = lambda: (kkt_inverse.launches, cuda_proj.line_polytope_projection.launches)
+    counts = lambda: tuple(w.launches for w in WRAPPERS)
     torch.cuda.synchronize()
     c0 = counts()
     torch.cuda.set_sync_debug_mode("error")

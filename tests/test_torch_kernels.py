@@ -1,4 +1,4 @@
-"""The two hand-written kernels' plain PyTorch versions against the Pallas
+"""The hand-written kernels' plain PyTorch versions against the Pallas
 kernels they replace (run in interpret mode, as tests/test_pallas_*.py do),
 and the CPU side of the device dispatch rules. The kernels themselves are
 held against their plain versions on the card by ``test_torch_cuda.py``.
@@ -18,6 +18,11 @@ order than the Pallas kernel's, and the error grows with n and the
 condition number (measured below 4e-6 at n = 136). float32 kernel B 1e-5:
 Dykstra contracts, so the order differences stay at a few ulps of the
 O(1) coordinates.
+
+Kernel C (``ops.linalg.kkt_gram``, the dense IPM's KKT matrix) replaces no
+Pallas kernel: on the CPU it is today's expression bit for bit; its input
+checks, its launch geometry and ``solve_qp``'s rule for taking it are
+tested here.
 """
 
 import numpy as np
@@ -29,6 +34,7 @@ import torch
 from boundplanner_tpu.ops.pallas_chol import cholesky_inverse
 from boundplanner_tpu.ops import pallas_proj
 from boundplanner_tpu_torch.ops import cuda_proj
+from boundplanner_tpu_torch.ops import linalg
 from boundplanner_tpu_torch.ops.linalg import chol_inverse_smem, kkt_inverse, kkt_inverse_plain
 from boundplanner_tpu_torch.ops.proj_chain import replay
 from test_torch_cuda import EDGE_FINITE, edge_batch, planner_batch, spd, tick_batch
@@ -309,3 +315,129 @@ def test_seg_poly_closest_cpu_f32_takes_ipm():
     np.testing.assert_array_equal(phi.numpy(), phi_ipm.numpy())
     assert cuda_proj.line_polytope_projection.launches == before
 
+
+
+# ---------------------------------------------------------------- kernel C
+
+
+def gram_case(rng, bsz=2, m=40, n=70):
+    g = torch.from_numpy(rng.normal(size=(bsz, m, n)))
+    w = torch.from_numpy(10.0 ** rng.uniform(-6.0, 6.0, size=(bsz, m)))
+    p = torch.from_numpy(spd(rng, bsz, n))
+    return p, g, w
+
+
+def test_kkt_gram_cpu_is_the_dense_expression_without_launch():
+    p, g, w = gram_case(np.random.default_rng(2))
+    before = linalg.kkt_gram.launches
+    got = linalg.kkt_gram(p, g, w, 1e-10)
+    eye = torch.eye(70, dtype=torch.float64)
+    assert torch.equal(got, p + (g.mT * w[..., None, :]) @ g + 1e-10 * eye)
+    assert linalg.kkt_gram.launches == before
+
+
+def test_kkt_gram_cpu_takes_the_jacobian_layout():
+    """G as the dense route's forward-mode Jacobian lays it out (strides
+    (m, 1, B m)): the same expression on the same tensor."""
+    p, g, w = gram_case(np.random.default_rng(5))
+    g = g.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    assert g.stride() == (40, 1, 80)
+    eye = torch.eye(70, dtype=torch.float64)
+    assert torch.equal(linalg.kkt_gram(p, g, w, 1e-10),
+                       p + (g.mT * w[..., None, :]) @ g + 1e-10 * eye)
+
+
+@pytest.mark.parametrize("case", ["g_no_unit_stride", "p_not_contiguous", "w_float32",
+                                  "all_float32", "g_shape", "w_shape"])
+def test_kkt_gram_raises_on_bad_input(case):
+    p, g, w = gram_case(np.random.default_rng(3), n=40, m=40)
+    error = {"w_float32": TypeError, "all_float32": TypeError}.get(case, ValueError)
+    strided = torch.zeros(2, 40, 80, dtype=torch.float64)[..., ::2]
+    strided.copy_(g)
+    args = {"g_no_unit_stride": (p, strided, w),
+            "p_not_contiguous": (p.transpose(1, 2), g, w),
+            "w_float32": (p, g, w.float()),
+            "all_float32": (p.float(), g.float(), w.float()),
+            "g_shape": (p, g[:, :, :39].contiguous(), w),
+            "w_shape": (p, g, w[:, :39].contiguous())}[case]
+    with pytest.raises(error):
+        linalg.kkt_gram(*args, 1e-10)
+
+
+@pytest.mark.parametrize("n", [1, 8, 64, 100, 136, 137, 200])
+def test_gram_tiles_cover_the_lower_triangle(n):
+    """The 16 x 8 tiles with 8 j <= 16 i + 15 are as many as `gram_tiles`
+    counts and hold every entry on or below the diagonal."""
+    tiles = [(i, j) for i in range(-(-n // 16)) for j in range(-(-n // 8))
+             if 8 * j <= 16 * i + 15]
+    assert len(tiles) == linalg.gram_tiles(n)
+    covered = {(16 * i + a, 8 * j + b) for i, j in tiles for a in range(16) for b in range(8)}
+    assert all((r, c) in covered for r in range(n) for c in range(r + 1))
+
+
+@pytest.mark.parametrize("bsz,m,n", [(128, 2439, 136), (1, 2439, 136), (4, 2439, 136),
+                                     (64, 2439, 136), (3, 17, 100), (3, 2440, 64),
+                                     (1, 1, 64), (2, 0, 64), (1, 5000, 300)])
+def test_kkt_gram_splits_cover_the_rows(bsz, m, n):
+    """Splits of the rows: a whole number of 32-row stages each, none
+    empty, all of them covered; split only where one block a scene and
+    tile group leaves SMs idle, into no more ranges than 64-row ones."""
+    splits, rows = linalg.kkt_gram_splits(bsz, m, n, 132)
+    assert rows % 32 == 0 and (splits - 1) * rows < max(m, 1) <= splits * rows
+    blocks = bsz * -(-linalg.gram_tiles(n) // 96)
+    if splits > 1:
+        assert splits * blocks <= 132 and splits <= -(-m // 64)
+
+
+def test_kkt_gram_splits_at_the_cells_batches():
+    """One pass at the f64 fleet's batch of 128; the arm's batch of 1
+    splits its 2,439 rows 39 ways."""
+    assert linalg.kkt_gram_splits(128, 2439, 136, 132) == (1, 2464)
+    assert linalg.kkt_gram_splits(1, 2439, 136, 132) == (39, 64)
+
+
+def test_solve_qp_takes_kkt_gram_dense_f64_from_64_variables(monkeypatch):
+    """``solve_qp`` builds its KKT matrix through `kkt_gram` once per IPM
+    iteration on the dense route in float64 with n >= 64; not with bf16
+    directions, in float32, below 64 variables, nor on the structured
+    route (a float64 tick of the flat structured configuration)."""
+    import dataclasses
+    import os
+
+    from boundplanner_tpu_torch.config import perf_mpc_params
+    from boundplanner_tpu_torch.mpc.bound_mpc import FleetMPC
+    from boundplanner_tpu_torch.ops import qp
+    from boundplanner_tpu_torch.parallel import batch
+    from boundplanner_tpu_torch.parallel.fleet_cache import load, to_torch, tree_map
+
+    calls = []
+
+    def counted(*args):
+        calls.append(args[1].shape)
+        return linalg.kkt_gram(*args)
+
+    monkeypatch.setattr(qp, "kkt_gram", counted)
+    rng = np.random.default_rng(4)
+
+    def taken(n, dtype, **kw):
+        p, g, _ = gram_case(rng, m=90, n=n)
+        q = torch.from_numpy(rng.normal(size=(2, n)))
+        h = torch.from_numpy(rng.uniform(0.5, 1.5, size=(2, 90)))
+        calls.clear()
+        qp.solve_qp(*(t.to(dtype) for t in (p, q, g, h)), iters=3, **kw)
+        return len(calls)
+
+    assert taken(70, torch.float64) == 3
+    assert taken(64, torch.float64) == 3
+    assert taken(63, torch.float64) == 0
+    assert taken(70, torch.float32) == 0
+    assert taken(70, torch.float32, lowp=True) == 0
+    payload = load(os.path.join(os.path.dirname(__file__), "..", ".fleet_cache", "test8.pkl"))
+    inputs = to_torch(tree_map(lambda a: np.asarray(a)[:1],
+                               (payload["carry"], payload["q0"], payload["obs"])),
+                      "cpu", torch.float64)
+    model = FleetMPC(dataclasses.replace(perf_mpc_params(), sqp_iters=1, qp_iters=2),
+                     device="cpu", dtype=torch.float64)
+    calls.clear()
+    batch.fleet_rollout(*inputs, model, 1)
+    assert model.cfg.struct_ocp and not calls

@@ -134,7 +134,7 @@ def test_step_graph_body_equals_eager_rollout(esc4_routes):
     assert retries == ref_retries == 1
     (key,) = body.graphs
     assert key[:3] == (tbatch._rollout_step, ESC4, (True,)) and not eager.graphs
-    assert body.graphs[key].branch_launches == [0, 0]   # the CPU counts no launch
+    assert body.graphs[key].branch_launches == [0, 0, 0]   # the CPU counts no launch
     np.testing.assert_array_equal(got[1]["success"], np.ones((2, TICKS), bool))
     assert_bitwise(got, ref)
 
@@ -197,7 +197,7 @@ def test_device_cond_outside_a_capture_counts_where_it_ran(held):
     finally:
         wrapper.launches = before
     assert len(got.preds) == 1 and got.preds[0] is pred
-    assert got.launches == [0, 0] and not got.graphs
+    assert got.launches == [0, 0, 0] and not got.graphs
 
 
 def test_graph_sets_warm_up_firings_against_the_count():
@@ -208,16 +208,16 @@ def test_graph_sets_warm_up_firings_against_the_count():
     from boundplanner_tpu_torch.mpc import graph as graph_mod
 
     runner = graph_mod.Graph(lambda x: x + 1, (torch.zeros(2),))
-    runner.branch_launches = [48, 1]
+    runner.branch_launches = [48, 1, 0]
     before = [w.launches for w in graph_mod.WRAPPERS]
     try:
         runner._warm_fired, runner._warm_idle = 1, 0
         assert runner.add_branch_launches(3) == 0
-        assert [w.launches - b for w, b in zip(graph_mod.WRAPPERS, before)] == [96, 2]
+        assert [w.launches - b for w, b in zip(graph_mod.WRAPPERS, before)] == [96, 2, 0]
         runner._warm_fired, runner._warm_idle = 0, 1
         assert runner.add_branch_launches(2) == 1
         assert runner.add_branch_launches(1) == 0
-        assert [w.launches - b for w, b in zip(graph_mod.WRAPPERS, before)] == [240, 5]
+        assert [w.launches - b for w, b in zip(graph_mod.WRAPPERS, before)] == [240, 5, 0]
     finally:
         for w, b in zip(graph_mod.WRAPPERS, before):
             w.launches = b
